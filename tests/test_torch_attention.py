@@ -1,0 +1,174 @@
+"""The port's attention ops (analytics_zoo_tpu_torch/ops/attention.py)
+against the JAX package's on the same numpy inputs.
+
+On the CPU the port's ``flash_fwd`` wrapper runs ``flash_attention_plain``
+(the CUDA kernel's plain version); the JAX flash kernel runs in Pallas
+interpret mode exactly as tests/test_attention.py runs it. Tolerances:
+f32 rtol/atol 2e-4, as in tests/test_attention.py. bf16 2e-2: both sides
+round the output to bf16 (8 bits of mantissa, one ulp is 2^-8 relative),
+and the JAX kernel also rounds q*scale and the probabilities to bf16
+before its matmuls while the port keeps them in f32, so the two may differ
+by a few bf16 ulps of outputs of magnitude up to ~2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from analytics_zoo_tpu.ops import attention as jattn
+from analytics_zoo_tpu_torch.ops import attention as tattn
+
+F32_TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _qkv(b=2, s_q=32, s_k=32, h=4, d=16, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, s_q, h, d).astype(np.float32) * 0.5
+    k = rng.randn(b, s_k, h, d).astype(np.float32) * 0.5
+    v = rng.randn(b, s_k, h, d).astype(np.float32) * 0.5
+    return q, k, v
+
+
+def _both(arrs, dtype="float32"):
+    jx = [jnp.asarray(a).astype(dtype) for a in arrs]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tx = [torch.from_numpy(a).to(tdt) for a in arrs]
+    return jx, tx
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+CASES = [  # (s_q, s_k, causal)
+    (32, 32, False),
+    (32, 32, True),
+    (16, 48, True),      # causal decode-style s_q < s_k, bottom-right mask
+    (16, 48, False),
+    (24, 72, False),     # lengths that are not a multiple of the tiles
+]
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", CASES)
+@pytest.mark.parametrize("impl", ["flash_attention", "flash_attention_plain"])
+def test_flash_matches_jax(s_q, s_k, causal, impl):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k))
+    ref_flash = jattn.flash_attention(jq, jk, jv, causal=causal,
+                                      block_q=8, block_k=8)
+    ref_mha = jattn.mha_reference(jq, jk, jv, causal=causal)
+    if impl == "flash_attention":
+        out = tattn.flash_attention(tq, tk, tv, causal=causal)
+    else:
+        out, _ = tattn.flash_attention_plain(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(out), _np(ref_flash), **F32_TOL)
+    np.testing.assert_allclose(_np(out), _np(ref_mha), **F32_TOL)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal",
+                         [(32, 32, False), (32, 32, True), (16, 48, True)])
+def test_flash_bf16_matches_jax(s_q, s_k, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k), "bfloat16")
+    ref = jattn.flash_attention(jq, jk, jv, causal=causal, block_q=8,
+                                block_k=8)
+    out = tattn.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(ref), **BF16_TOL)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal",
+                         [(32, 32, False), (32, 32, True), (16, 48, True)])
+def test_lse2_matches_jax_kernel(s_q, s_k, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k))
+    sm_scale = 1.0 / np.sqrt(16)
+    jout, jlse = jattn._flash_forward(jq, jk, jv, causal, sm_scale, 8, 8,
+                                      interpret=True, with_lse=True)
+    out, lse = tattn.flash_fwd(tq, tk, tv, causal=causal, sm_scale=sm_scale,
+                               with_lse=True)
+    assert tuple(lse.shape) == tuple(jlse.shape) == (2 * 4, s_q, 1)
+    np.testing.assert_allclose(_np(lse), _np(jlse), **F32_TOL)
+    np.testing.assert_allclose(_np(out), _np(jout), **F32_TOL)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal,blocks,routed", [
+    (32, 32, False, (1024, 1024), "kernel"),
+    (16, 48, True, (1024, 1024), "kernel"),
+    (12, 12, False, (8, 8), "reference"),     # 12 has no tile <= 8
+    (48, 16, True, (1024, 1024), "reference"),  # causal s_q > s_k
+])
+def test_routing_matches_jax(monkeypatch, s_q, s_k, causal, blocks, routed):
+    """The port sends the same shapes to the kernel as the JAX package:
+    the fit_block ladder decides, and indivisible tiles or causal
+    s_q > s_k take the reference route."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k))
+    calls = []
+    real = tattn._FlashAttention.apply
+    monkeypatch.setattr(tattn._FlashAttention, "apply",
+                        lambda *a: calls.append(a) or real(*a))
+    out = tattn.flash_attention(tq, tk, tv, causal=causal, block_q=blocks[0],
+                                block_k=blocks[1])
+    assert ("kernel" if calls else "reference") == routed
+    ref = jattn.flash_attention(jq, jk, jv, causal=causal,
+                                block_q=blocks[0], block_k=blocks[1])
+    np.testing.assert_allclose(_np(out), _np(ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal",
+                         [(96, 96, False), (96, 96, True), (1, 96, True)])
+def test_blockwise_attention_matches_jax(s_q, s_k, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k))
+    ref = jattn.blockwise_attention(jq, jk, jv, causal=causal, block_k=32)
+    out = tattn.blockwise_attention(tq, tk, tv, causal=causal, block_k=32)
+    np.testing.assert_allclose(_np(out), _np(ref), **F32_TOL)
+
+
+def test_mha_reference_bias_matches_jax():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv())
+    mask = np.ones((2, 32), np.float32)
+    mask[:, 20:] = 0
+    jbias = (1.0 - jnp.asarray(mask)[:, None, None, :]) * -1e9
+    tbias = (1.0 - torch.from_numpy(mask)[:, None, None, :]) * -1e9
+    ref = jattn.mha_reference(jq, jk, jv, bias=jbias)
+    out = tattn.mha_reference(tq, tk, tv, bias=tbias)
+    np.testing.assert_allclose(_np(out), _np(ref), **F32_TOL)
+
+
+def test_cpu_wrapper_runs_plain_and_counts_no_launch():
+    _, (tq, tk, tv) = _both(_qkv())
+    before = tattn.flash_fwd.launches
+    out, lse = tattn.flash_fwd(tq, tk, tv, causal=True, with_lse=True)
+    pout, plse = tattn.flash_attention_plain(tq, tk, tv, causal=True)
+    assert torch.equal(out, pout) and torch.equal(lse, plse)
+    assert tattn.flash_fwd.launches == before
+
+
+def test_flash_backward_is_next_slice():
+    _, (tq, tk, tv) = _both(_qkv())
+    tq.requires_grad_(True)
+    out = tattn.flash_attention(tq, tk, tv)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_on_card(dtype, tol):
+    """Runs the CUDA kernel; needs the card (skips without one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for s_q, s_k, causal in [(128, 128, False), (128, 128, True),
+                             (128, 512, True), (100, 130, False)]:
+        q, k, v = (torch.randn(2, s, 12, 64, device="cuda", generator=g)
+                   .to(dtype) for s in (s_q, s_k, s_k))
+        before = tattn.flash_fwd.launches
+        out, lse = tattn.flash_fwd(q, k, v, causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        assert tattn.flash_fwd.launches == before + 1
+        pout, plse = tattn.flash_attention_plain(q, k, v, causal=causal)
+        assert (out.float() - pout.float()).abs().max().item() <= tol
+        assert (lse - plse).abs().max().item() <= 1e-5
