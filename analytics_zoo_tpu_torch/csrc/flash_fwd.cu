@@ -37,16 +37,11 @@
 // (7.5 us against 1.6 us of tensor-core work); this kernel does not use the
 // tensor cores. mma.sync/wgmma tiles with TMA loads are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per CTA
-constexpr int BK = 64;       // keys per tile
-constexpr int NT = 256;      // threads per CTA: a 16 x 16 grid
-constexpr int PS = BK + 1;   // padded row of the P tile
-constexpr float NEG_INF = -1e30f;
+using namespace zoo_flash;
 
 struct Params {
   const void* q;
@@ -59,20 +54,6 @@ struct Params {
   float scale2;   // sm_scale * log2(e)
   int causal;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -271,10 +252,6 @@ int zoo_flash_fwd(const void* q, const void* k, const void* v, void* o,
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
-}
-
-const char* zoo_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

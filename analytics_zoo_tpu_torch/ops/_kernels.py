@@ -39,6 +39,16 @@ _SIGNATURES = {
                    _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,
                    _c_ll, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll,  # b/s/h strides
                    _c_f, _c_i, _c_p]),                    # scale2 causal stream
+    # q k v o g lse delta dq | dtype B H Sq Sk D | b/s/h strides of q k v
+    # o g dq | scale2 sm_scale causal stream
+    "flash_bwd_dq": ("zoo_flash_bwd_dq",
+                     [_c_p] * 8 + [_c_i] * 6 + [_c_ll] * 18
+                     + [_c_f, _c_f, _c_i, _c_p]),
+    # q k v g lse delta dk dv | dtype B H Sq Sk D | b/s/h strides of q k v
+    # g dk(=dv) | scale2 1/log2(e) causal stream
+    "flash_bwd_dkv": ("zoo_flash_bwd_dkv",
+                      [_c_p] * 8 + [_c_i] * 6 + [_c_ll] * 15
+                      + [_c_f, _c_f, _c_i, _c_p]),
 }
 
 _lock = threading.Lock()

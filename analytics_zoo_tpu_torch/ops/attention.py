@@ -1,15 +1,22 @@
 """Attention ops (counterpart of ``analytics_zoo_tpu/ops/attention.py``):
 reference multi-head attention, the blockwise online-softmax pieces, and
-flash attention with a hand-written CUDA forward kernel.
+flash attention with hand-written CUDA kernels forward and backward.
 
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
 package, so the port's public functions compare like with like.
 
-``flash_fwd`` is the kernel's wrapper: on a CUDA tensor it launches
-``csrc/flash_fwd.cu`` (which replaces the Pallas ``_flash_kernel``) or
-raises; on a CPU tensor it runs ``flash_attention_plain``, the plain
-PyTorch version that repeats the kernel's arithmetic. There is no fallback
-from the card to the plain version.
+Each kernel has a wrapper that, on CUDA tensors, launches it or raises,
+and on CPU tensors runs its plain PyTorch version, which repeats the
+kernel's arithmetic:
+
+* ``flash_fwd`` -> ``csrc/flash_fwd.cu`` (the Pallas ``_flash_kernel``),
+  plain version ``flash_attention_plain``;
+* ``flash_bwd_dq`` -> ``csrc/flash_bwd_dq.cu`` (``_flash_bwd_dq_kernel``),
+  plain version ``flash_bwd_dq_plain``;
+* ``flash_bwd_dkv`` -> ``csrc/flash_bwd_dkv.cu`` (``_flash_bwd_dkv_kernel``),
+  plain version ``flash_bwd_dkv_plain``. ``flash_bwd_plain`` runs both.
+
+There is no fallback from the card to a plain version.
 """
 
 from __future__ import annotations
@@ -156,29 +163,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse2
 
 
-def _check_kernel_inputs(q, k, v, causal):
+def _check_kernel_inputs(q, k, v, causal, what="flash_fwd"):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_fwd: q, k and v must all lie on the card")
+        raise ValueError(f"{what}: q, k and v must all lie on the card")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd: q, k and v lie on different devices")
+        raise ValueError(f"{what}: q, k and v lie on different devices")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_fwd: the kernel takes one of "
+        raise TypeError(f"{what}: the kernel takes one of "
                         f"{sorted(map(str, _DTYPE_CODES))} for q, k and v, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_fwd: q, k, v must be (B, S, H, D)")
+        raise ValueError(f"{what}: q, k, v must be (B, S, H, D)")
     b, s_q, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"flash_fwd: shapes disagree: q {tuple(q.shape)} "
+        raise ValueError(f"{what}: shapes disagree: q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim {d} not in "
+        raise ValueError(f"{what}: head_dim {d} not in "
                          f"{KERNEL_HEAD_DIMS}")
     if causal and s_q > k.shape[1]:
-        raise ValueError("flash_fwd: causal needs s_q <= s_k (a query row "
+        raise ValueError(f"{what}: causal needs s_q <= s_k (a query row "
                          "would see no key)")
     if s_q == 0 or k.shape[1] == 0:
-        raise ValueError("flash_fwd: empty sequence")
+        raise ValueError(f"{what}: empty sequence")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -227,18 +234,240 @@ flash_fwd.launches = 0
 _launch_lock = threading.Lock()
 
 
+# ---------------------------------------------------------------------------
+# flash backward: the two kernels' plain versions and their wrappers
+# ---------------------------------------------------------------------------
+
+def _bwd_operands(q, k, v, g, lse2, sm_scale):
+    """f32 (B, H, S, D) operands of the backward: q pre-scaled into the
+    log2 domain as the forward had it, and L = lse2 as (B, H, Sq, 1)."""
+    b, s_q, h, _ = q.shape
+    q2 = q.float().permute(0, 2, 1, 3) * (sm_scale * LOG2_E)
+    kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (k, v, g))
+    return q2, kf, vf, gf, lse2.reshape(b, h, s_q, 1)
+
+
+def _bwd_delta(g, o):
+    """delta = rowsum(g * o) in f32, as (B*H, Sq, 1) like lse2."""
+    b, s_q, h, _ = g.shape
+    delta = (g.float() * o.float()).sum(-1)                  # (B, Sq, H)
+    return delta.permute(0, 2, 1).reshape(b * h, s_q, 1)
+
+
+def _bwd_tile_plain(q2, k_t, v_t, g, L, delta, causal, q_pos, k0):
+    """One (query rows, key tile) block of the backward, as the kernels do
+    it: rebuild P = exp2(q2 k^T - L), dP = g v^T, dS = P (dP - delta).
+    Masked scores are NEG_INF, so their P is exactly 0."""
+    s = q2 @ k_t.transpose(-1, -2)
+    if causal:
+        k_pos = k0 + torch.arange(k_t.shape[-2], device=q2.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
+    p = torch.exp2(s - L)
+    ds = p * (g @ v_t.transpose(-1, -2) - delta)
+    return p, ds
+
+
+def _to_bshd(t, dtype):
+    """(B, H, S, D) f32 -> a fresh (B, S, H, D) tensor of ``dtype``."""
+    return t.to(dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_bwd_dq_plain(q, k, v, o, lse2, g, *, causal: bool = False,
+                       sm_scale: Optional[float] = None):
+    """B2's arithmetic in plain PyTorch, in f32: delta = rowsum(g * o);
+    walk the key tiles, dq += dS k; scale by sm_scale at the end. Returns
+    (dq in the input dtype, delta as (B*H, Sq, 1) f32)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    q2, kf, vf, gf, L = _bwd_operands(q, k, v, g, lse2, sm_scale)
+    delta = _bwd_delta(g, o)
+    d4 = delta.reshape(b, h, s_q, 1)
+    q_pos = (s_k - s_q) + torch.arange(s_q, device=q.device)[:, None]
+    dq = torch.zeros_like(q2)
+    for k0 in range(0, s_k, KERNEL_BLOCK_K):
+        k1 = k0 + KERNEL_BLOCK_K
+        k_t, v_t = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        _, ds = _bwd_tile_plain(q2, k_t, v_t, gf, L, d4, causal, q_pos, k0)
+        dq = dq + ds @ k_t
+    return _to_bshd(dq * sm_scale, q.dtype), delta
+
+
+def flash_bwd_dkv_plain(q, k, v, g, lse2, delta, *, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """B3's arithmetic in plain PyTorch, in f32: walk the query tiles,
+    dv += P^T g and dk += dS^T q2, then dk times 1/log2(e) (q2 carried the
+    log2 prescale). Returns (dk, dv) in the input dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    q2, kf, vf, gf, L = _bwd_operands(q, k, v, g, lse2, sm_scale)
+    d4 = delta.reshape(b, h, s_q, 1)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, s_q, KERNEL_BLOCK_Q):
+        q1 = min(q0 + KERNEL_BLOCK_Q, s_q)
+        q_pos = (s_k - s_q) + torch.arange(q0, q1, device=q.device)[:, None]
+        q_t, g_t = q2[:, :, q0:q1], gf[:, :, q0:q1]
+        p, ds = _bwd_tile_plain(q_t, kf, vf, g_t, L[:, :, q0:q1],
+                                d4[:, :, q0:q1], causal, q_pos, 0)
+        dv = dv + p.transpose(-1, -2) @ g_t
+        dk = dk + ds.transpose(-1, -2) @ q_t
+    return _to_bshd(dk * (1.0 / LOG2_E), k.dtype), _to_bshd(dv, v.dtype)
+
+
+def flash_bwd_plain(q, k, v, o, lse2, g, *, causal: bool = False,
+                    sm_scale: Optional[float] = None):
+    """B2 and B3 in plain PyTorch: the JAX package's ``_flash_bwd`` with
+    every operand in f32 (the JAX kernel rounds P and dS to bf16 for bf16
+    inputs; the CUDA kernels and this version keep them in f32). q, k, v,
+    o, g are (B, S, H, D), lse2 is the forward's (B*H, Sq, 1) f32. Returns
+    (dq, dk, dv) in the input dtype."""
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq, delta = flash_bwd_dq_plain(q, k, v, o, lse2, g, **kw)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse2, delta, **kw)
+    return dq, dk, dv
+
+
+def _check_bwd_inputs(what, q, k, v, g, lse2, causal, *extra):
+    _check_kernel_inputs(q, k, v, causal, what)
+    b, s_q, h, _ = q.shape
+    if not g.is_cuda or g.device != q.device or g.dtype != q.dtype:
+        raise ValueError(f"{what}: g must lie on q's device with q's dtype")
+    if g.shape != q.shape:
+        raise ValueError(f"{what}: g {tuple(g.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    for name, t in (("lse2", lse2),) + extra:
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b * h, s_q, 1)
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous f32 "
+                             f"(B*H, Sq, 1) tensor on q's device")
+
+
+def _strides(*ts):
+    out = []
+    for t in ts:
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
+def _unit_last(t):
+    """The kernels read rows with a unit head_dim stride. Autograd's g can
+    be an expanded or otherwise strided tensor: only then is one
+    contiguous copy made."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def flash_bwd_dq(q, k, v, o, lse2, g, *, causal: bool = False,
+                 sm_scale: Optional[float] = None):
+    """dQ pass of the flash backward over (B, S, H, D).
+
+    On CUDA tensors: launches ``csrc/flash_bwd_dq.cu`` (replaces the
+    Pallas ``_flash_bwd_dq_kernel``), which also writes ``delta =
+    rowsum(g*o)`` for the dK/dV pass, and adds one to
+    ``flash_bwd_dq.launches``. On CPU tensors: the plain version. Returns
+    ``(dq, delta)``: dq (B, Sq, H, D) in the input dtype, delta (B*H, Sq,
+    1) f32."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not q.is_cuda:
+        return flash_bwd_dq_plain(q, k, v, o, lse2, g, causal=causal,
+                                  sm_scale=sm_scale)
+    from . import _kernels
+
+    _check_bwd_inputs("flash_bwd_dq", q, k, v, g, lse2, causal)
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError("flash_bwd_dq: o must match q in shape, dtype "
+                         "and device")
+    q, k, v, o, g = (_unit_last(t) for t in (q, k, v, o, g))
+    b, s_q, h, d = q.shape
+    dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b * h, s_q, 1), dtype=torch.float32,
+                        device=q.device)
+    lib = _kernels.load("flash_bwd_dq")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.zoo_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d,
+            *_strides(q, k, v, o, g, dq),
+            ctypes.c_float(sm_scale * LOG2_E), ctypes.c_float(sm_scale),
+            int(bool(causal)), stream)
+    _kernels.check(lib, err, "flash_bwd_dq")
+    with _launch_lock:
+        flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, g, lse2, delta, *, causal: bool = False,
+                  sm_scale: Optional[float] = None):
+    """dK/dV pass of the flash backward over (B, S, H, D), given the
+    ``delta`` that ``flash_bwd_dq`` returned.
+
+    On CUDA tensors: launches ``csrc/flash_bwd_dkv.cu`` (replaces the
+    Pallas ``_flash_bwd_dkv_kernel``) and adds one to
+    ``flash_bwd_dkv.launches``. On CPU tensors: the plain version. Returns
+    ``(dk, dv)``, (B, Sk, H, D) in the input dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not q.is_cuda:
+        return flash_bwd_dkv_plain(q, k, v, g, lse2, delta, causal=causal,
+                                   sm_scale=sm_scale)
+    from . import _kernels
+
+    _check_bwd_inputs("flash_bwd_dkv", q, k, v, g, lse2, causal,
+                      ("delta", delta))
+    q, k, v, g = (_unit_last(t) for t in (q, k, v, g))
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    dk = torch.empty((b, s_k, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    lib = _kernels.load("flash_bwd_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.zoo_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, s_q, s_k, d,
+            *_strides(q, k, v, g, dk),
+            ctypes.c_float(sm_scale * LOG2_E), ctypes.c_float(1.0 / LOG2_E),
+            int(bool(causal)), stream)
+    _kernels.check(lib, err, "flash_bwd_dkv")
+    with _launch_lock:
+        flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention with the kernel forward. The backward kernels (the
-    JAX package's ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``)
-    are the next slice's work."""
+    """Flash attention: kernel B1 forward, kernels B2 and B3 backward.
+    Without grad (serving) the forward skips lse2 and saves nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        o, lse2 = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse2)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError("flash backward: slice 2")
+        q, k, v, o, lse2 = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse2, g, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse2, delta, **kw)
+        return dq, dk, dv, None, None
 
 
 def _fit_block(s: int, want: int) -> Optional[int]:

@@ -5,10 +5,25 @@ semantics: a negative id counts from the end of the table, and a row
 outside ``[-rows, rows)`` reads as NaN instead of faulting the device, so a
 malformed request yields a NaN answer and the server stays up.
 
-``grad_mode`` is accepted and validated as in the JAX package. Its
-``onehot``/``auto`` backward numerics (a one-hot matmul in bf16) belong to
-the training slice; until then every mode takes autograd's own backward of
-the gather, which is the JAX package's ``scatter`` mode.
+The backward follows ``grad_mode`` as in the JAX package:
+
+* ``"scatter"`` — autograd's own backward of the gather (a scatter-add):
+  exact f32 table gradients. Out-of-range ids get no gradient; negative
+  ids send theirs to the row they read.
+* ``"onehot"`` — the JAX package's one-hot matmul backward, ``dTable =
+  onehot(ids)^T @ g``: the cotangents are rounded to bf16, the one-hot is
+  exact, the products are summed in f32 and the result is cast to the
+  table's dtype, so table gradients agree with ``scatter`` to bf16
+  precision. As in JAX, the one-hot is built from the raw ids: a negative
+  or out-of-range id matches no row. It materialises (ids, rows) f32, so
+  it is meant for the small tables ``auto`` picks it for.
+* ``"auto"`` — ``onehot`` for 2-D tables with rows <= ``ONEHOT_ROWS_MAX``
+  and rows*cols <= ``ONEHOT_ELEMENTS_MAX`` (BERT's segment table, small
+  vocabularies), else ``scatter`` (BERT-Base's 30522 x 768 token table).
+  ``ZOO_EMBED_GRAD_MODE`` overrides ``auto``.
+
+The one-hot backward is plain torch ops (one matmul), as it was XLA ops and
+not a Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,14 +33,15 @@ import math
 import torch
 from torch import nn
 
+from ..common import knobs
+
 GRAD_MODES = ("auto", "onehot", "scatter")
+# the JAX package's crossover (analytics_zoo_tpu/ops/embedding.py)
+ONEHOT_ROWS_MAX = 32768
+ONEHOT_ELEMENTS_MAX = ONEHOT_ROWS_MAX * 256
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
-                     grad_mode: str = "auto") -> torch.Tensor:
-    """``table[ids]`` over the leading axis of ``table``."""
-    if grad_mode not in GRAD_MODES:
-        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows = table.shape[0]
     ids = ids.long()
     valid = (ids >= -rows) & (ids < rows)
@@ -35,6 +51,48 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     return torch.where(valid.reshape(valid.shape + (1,) * (out.dim()
                                                            - ids.dim())),
                        out, nan)
+
+
+class _OneHotLookup(torch.autograd.Function):
+    """The gather forward with the one-hot matmul backward."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return _gather(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat_ids = ids.reshape(-1).long()
+        flat_g = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
+        rows = torch.arange(ctx.rows, device=ids.device)
+        onehot = (flat_ids[:, None] == rows[None, :]).float()
+        return (onehot.t() @ flat_g).to(ctx.dtype), None
+
+
+def _use_onehot(table: torch.Tensor, grad_mode: str) -> bool:
+    if grad_mode == "auto":
+        grad_mode = knobs.get("ZOO_EMBED_GRAD_MODE")
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    rows, cols = table.shape[0], math.prod(table.shape[1:])
+    return table.dim() == 2 and (
+        grad_mode == "onehot"
+        or (grad_mode == "auto" and rows <= ONEHOT_ROWS_MAX
+            and rows * cols <= ONEHOT_ELEMENTS_MAX))
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+                     grad_mode: str = "auto") -> torch.Tensor:
+    """``table[ids]`` over the leading axis of ``table``, with the backward
+    ``grad_mode`` selects (see the module docstring)."""
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    if _use_onehot(table, grad_mode):
+        return _OneHotLookup.apply(table, ids)
+    return _gather(table, ids)
 
 
 class MXUEmbed(nn.Module):

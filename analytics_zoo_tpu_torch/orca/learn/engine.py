@@ -1,0 +1,214 @@
+"""The training engine (counterpart of ``analytics_zoo_tpu/orca/learn/
+engine.py``) on one device, with every plane off.
+
+The JAX engine jits one XLA program per step over the device mesh. PyTorch
+runs eagerly, so a step here is the module's forward, autograd's backward
+(through the flash-attention kernels on the card), the gradient clipping
+and the ``torch.optim`` update, in that order; the steps keep the JAX
+engine's names and semantics:
+
+* ``_train_step``: per-example loss, reduced as the weighted mean over the
+  real rows of the batch (``w=None``: every row is real); clip; update.
+* ``_eval_step``: loss times the row count, and the metric states, so that
+  ``evaluate`` sums them over batches.
+* ``_predict_step``: the module in ``eval()`` mode.
+
+The module's ``train()``/``eval()`` mode takes the place of the flax
+``train`` argument. ``build`` hands the engine's ``torch.Generator`` to
+every ``Dropout`` of the module once; each train step reseeds it from
+``seed`` and the step, so a step's masks are a function of both, as
+``fold_in(PRNGKey(seed), step)`` makes them in JAX (the two generators give
+different bits). Parameters are initialised when the module is
+constructed; ``build`` moves nothing and re-initialises nothing, so weights
+a caller loaded (for example through ``interop``) are what trains.
+
+Not ported: scan fusion (``fuse`` is always 1), and the comms, sharding,
+fsdp, compile-cache and prologue planes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ...pipeline.api.keras.layers.self_attention import Dropout
+from .metrics import Metric
+from .utils import Batch
+
+_SEED_MIX = 0x9E3779B97F4A7C15      # odd 64-bit constant: seed and step mix
+
+
+class TrainEngine:
+    """Owns the module, its optimizer and the train/eval/predict steps.
+
+    module : ``nn.Module`` already on ``device``
+    optimizer : factory ``params -> torch.optim.Optimizer``
+    loss_fn : ``(y_true, y_pred) -> per-example loss`` (or None: the model
+        returns its loss)
+    metrics : dict name -> Metric
+    """
+
+    def __init__(self, module: nn.Module,
+                 optimizer: Callable[..., torch.optim.Optimizer],
+                 loss_fn: Optional[Callable], metrics: Dict[str, Metric],
+                 device: torch.device, seed: int = 0):
+        self.module = module
+        self.make_optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.metrics = metrics
+        self.device = device
+        self.seed = seed
+        self.opt: Optional[torch.optim.Optimizer] = None
+        self.step = 0
+        self._gen = torch.Generator(device=device)
+        self._clip_norm: Optional[float] = None
+        self._clip_min: Optional[float] = None
+        self._clip_max: Optional[float] = None
+
+    # --- gradient clipping --------------------------------------------------
+    _KEEP = object()                    # "leave this clip setting as-is"
+
+    def set_gradient_clipping(self, *, norm=_KEEP, min_value=_KEEP,
+                              max_value=_KEEP):
+        """Update clip settings; unspecified kwargs keep their value."""
+        if norm is not TrainEngine._KEEP:
+            self._clip_norm = norm
+        if min_value is not TrainEngine._KEEP:
+            self._clip_min = min_value
+        if max_value is not TrainEngine._KEEP:
+            self._clip_max = max_value
+
+    def clear_gradient_clipping(self):
+        self.set_gradient_clipping(norm=None, min_value=None, max_value=None)
+
+    def _clip_grads(self, grads):
+        """Global-norm clipping (scale by min(1, clip / max(norm, 1e-12))),
+        then clipping by value, in place."""
+        if self._clip_norm is not None:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            scale = torch.clamp(self._clip_norm / gnorm.clamp_min(1e-12),
+                                max=1.0)
+            for g in grads:
+                g.mul_(scale)
+        if self._clip_min is not None or self._clip_max is not None:
+            for g in grads:
+                g.clamp_(self._clip_min, self._clip_max)
+
+    # --- init ---------------------------------------------------------------
+    def build(self):
+        """Create the optimizer over the module's parameters and point
+        every dropout of the module at the engine's generator (once)."""
+        if self.opt is not None:
+            return
+        self.opt = self.make_optimizer(list(self.module.parameters()))
+        for m in self.module.modules():
+            if isinstance(m, Dropout):
+                m.generator = self._gen
+        self.step = 0
+
+    # --- model application --------------------------------------------------
+    def _apply(self, x, train: bool):
+        self.module.train(train)
+        return self.module(*x)
+
+    def _compute_loss(self, y, preds, w):
+        if self.loss_fn is None:
+            per_ex = preds              # the model returned its loss
+        else:
+            y0 = y[0] if (isinstance(y, tuple) and len(y) == 1) else y
+            per_ex = self.loss_fn(y0, preds)
+        per_ex = per_ex.reshape(per_ex.shape[0], -1).mean(-1)
+        if w is None:                   # full batch: every row is real
+            return per_ex.mean()
+        return (per_ex * w).sum() / w.sum().clamp_min(1e-8)
+
+    # --- steps --------------------------------------------------------------
+    def _train_step(self, x, y, w) -> torch.Tensor:
+        self._gen.manual_seed((self.seed * _SEED_MIX + self.step)
+                              & 0x7FFFFFFFFFFFFFFF)
+        self.opt.zero_grad(set_to_none=True)
+        preds = self._apply(x, True)
+        loss = self._compute_loss(y, preds, w)
+        loss.backward()
+        grads = [p.grad for p in self.module.parameters()
+                 if p.grad is not None]
+        self._clip_grads(grads)
+        self.opt.step()
+        return loss.detach()
+
+    def _eval_step(self, metric_states, x, y, w):
+        with torch.no_grad():
+            preds = self._apply(x, False)
+            loss = (self._compute_loss(y, preds, w)
+                    if (y is not None or self.loss_fn is None)
+                    else torch.zeros((), device=self.device))
+            y0 = None
+            if y is not None:
+                y0 = y[0] if (isinstance(y, tuple) and len(y) == 1) else y
+            if w is None:
+                w = torch.ones(x[0].shape[0], device=self.device)
+            new_states = {name: m.update(metric_states[name], y0, preds, w)
+                          for name, m in self.metrics.items()}
+            count = w.sum()
+        return new_states, loss * count, count
+
+    def _predict_step(self, x):
+        with torch.no_grad():
+            return self._apply(x, False)
+
+    # --- public API ---------------------------------------------------------
+    def train_batch(self, batch: Batch) -> torch.Tensor:
+        """One optimizer step on a host batch; returns the loss as a device
+        scalar (read it after the epoch, so the host keeps issuing)."""
+        b = batch.to(self.device)
+        loss = self._train_step(b.x, b.y, b.w)
+        self.step += 1
+        return loss
+
+    def init_metric_states(self):
+        return {name: m.init_state(self.device)
+                for name, m in self.metrics.items()}
+
+    def eval_batch(self, metric_states, batch: Batch):
+        b = batch.to(self.device)
+        return self._eval_step(metric_states, b.x, b.y, b.w)
+
+    def finalize_metrics(self, metric_states, loss_sum, count
+                         ) -> Dict[str, float]:
+        out = {name: float(m.compute(metric_states[name]))
+               for name, m in self.metrics.items()}
+        out["loss"] = float(loss_sum / max(count, 1e-8))
+        out["num_samples"] = int(count)
+        return out
+
+    def predict_batch(self, x):
+        return self._predict_step(Batch(x=x, y=None, w=None)
+                                  .to(self.device).x)
+
+    # --- state access -------------------------------------------------------
+    def get_state(self) -> Dict[str, Any]:
+        """Module state (parameters and buffers), optimizer state and step,
+        as CPU tensors."""
+        def cpu(obj):
+            if isinstance(obj, torch.Tensor):
+                return obj.detach().cpu().clone()
+            if isinstance(obj, dict):
+                return {k: cpu(v) for k, v in obj.items()}
+            if isinstance(obj, (list, tuple)):
+                return type(obj)(cpu(v) for v in obj)
+            return obj
+
+        return {"params": cpu(self.module.state_dict()),
+                "opt_state": (cpu(self.opt.state_dict())
+                              if self.opt is not None else None),
+                "step": self.step}
+
+    def set_state(self, state: Dict[str, Any]):
+        self.module.load_state_dict(state["params"], strict=True)
+        if state.get("opt_state") is not None:
+            self.build()
+            self.opt.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])

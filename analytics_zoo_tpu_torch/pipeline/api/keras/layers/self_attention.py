@@ -14,7 +14,10 @@ approximation; LayerNorm eps is 1e-5 in the blocks and 1e-12 in
 well inside the f32 tolerance of the port's tests (2e-4).
 
 Dropout follows torch's idiom: active in ``train()`` mode, off in
-``eval()`` (the flax modules' ``train=False``).
+``eval()`` (the flax modules' ``train=False``). It draws its mask from the
+``torch.Generator`` the training engine hands it in ``build`` and reseeds
+at every step (see ``orca/learn/engine.py``), or from torch's global
+generator when it has none.
 """
 
 from __future__ import annotations
@@ -28,6 +31,24 @@ from torch import nn
 
 from .....ops.attention import flash_attention, mha_reference
 from .....ops.embedding import MXUEmbed
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout`` that can draw from a given generator. Attribute
+    ``generator``: a ``torch.Generator`` on the input's device, or None
+    for torch's global one."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.p))
 
 
 def dense(in_features: int, out_features: int) -> nn.Linear:
@@ -57,7 +78,7 @@ class MultiHeadAttention(nn.Module):
         self.causal, self.strategy = causal, strategy
         self.qkv = dense(hidden_size, 3 * hidden_size)
         self.proj = dense(hidden_size, hidden_size)
-        self.dropout = nn.Dropout(attn_dropout) if attn_dropout else None
+        self.dropout = Dropout(attn_dropout) if attn_dropout else None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -98,7 +119,7 @@ class TransformerBlock(nn.Module):
         self.ffn_out = dense(intermediate_size, hidden_size)
         self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.activation = activation
-        self.dropout = nn.Dropout(hidden_drop) if hidden_drop else None
+        self.dropout = Dropout(hidden_drop) if hidden_drop else None
 
     def _drop(self, x):
         return x if self.dropout is None else self.dropout(x)
@@ -138,7 +159,7 @@ class TransformerLayer(nn.Module):
         self.token_embedding = MXUEmbed(vocab, hidden_size)
         self.position_embedding = nn.Parameter(
             torch.randn(seq_len, hidden_size) * 0.02)
-        self.embedding_drop = (nn.Dropout(embedding_drop) if embedding_drop
+        self.embedding_drop = (Dropout(embedding_drop) if embedding_drop
                                else None)
         self._blocks = _add_blocks(
             self, n_block, n_head=n_head, hidden_size=hidden_size,
@@ -172,7 +193,7 @@ class BERT(nn.Module):
         self.position_embedding = nn.Parameter(
             torch.randn(seq_len, hidden_size) * 0.02)
         self.embedding_norm = nn.LayerNorm(hidden_size, eps=1e-12)
-        self.dropout = nn.Dropout(hidden_p_drop) if hidden_p_drop else None
+        self.dropout = Dropout(hidden_p_drop) if hidden_p_drop else None
         block_kwargs = dict(n_head=n_head, hidden_size=hidden_size,
                             intermediate_size=intermediate_size,
                             hidden_drop=hidden_p_drop, attn_drop=attn_p_drop,

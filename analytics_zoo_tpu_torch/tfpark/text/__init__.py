@@ -1,3 +1,5 @@
-from .estimator import bert_input_fn
+from .estimator import (BERTClassifier, BERTNER, BERTSQuAD,
+                        BERTBaseEstimator, bert_input_fn)
 
-__all__ = ["bert_input_fn"]
+__all__ = ["BERTBaseEstimator", "BERTClassifier", "BERTNER", "BERTSQuAD",
+           "bert_input_fn"]

@@ -110,6 +110,15 @@ def test_port_imports_no_jax():
         "import analytics_zoo_tpu_torch.pipeline.inference\n"
         "import analytics_zoo_tpu_torch.tfpark.text.estimator\n"
         "import analytics_zoo_tpu_torch.interop\n"
+        "import analytics_zoo_tpu_torch.tfpark.text\n"
+        "import analytics_zoo_tpu_torch.orca.learn\n"
+        "import analytics_zoo_tpu_torch.orca.learn.engine\n"
+        "import analytics_zoo_tpu_torch.orca.learn.estimator\n"
+        "import analytics_zoo_tpu_torch.orca.learn.losses\n"
+        "import analytics_zoo_tpu_torch.orca.learn.metrics\n"
+        "import analytics_zoo_tpu_torch.orca.learn.optimizers\n"
+        "import analytics_zoo_tpu_torch.orca.learn.trigger\n"
+        "import analytics_zoo_tpu_torch.orca.learn.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'analytics_zoo_tpu')]\n"
         "print(json.dumps(bad))\n")
