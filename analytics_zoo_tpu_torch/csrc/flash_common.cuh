@@ -4,11 +4,13 @@
 //
 // Common layout: q (B, Sq, H, D), k/v (B, Sk, H, D) and the gradients of the
 // same shapes, read and written through their (batch, seq, head) strides
-// with a unit head_dim stride. Tiles are staged in shared memory as f32,
-// rows padded to D + 1 floats so that threads reading down a column hit
-// distinct banks. A CTA has 256 threads as a 16 x 16 grid: thread (ty, tx)
-// owns rows 4ty..4ty+3 of a 64-row tile and, of the other operand's 64-row
-// tile, rows tx + 16j (j < 4).
+// with a unit head_dim stride. The scalar tile pieces (load_tile,
+// dot_block, NT, PS) are the dQ pass's, which still runs on the CUDA
+// cores: tiles staged in shared memory as f32, rows padded to D + 1 floats
+// so that threads reading down a column hit distinct banks, and a CTA of
+// 256 threads as a 16 x 16 grid in which thread (ty, tx) owns rows
+// 4ty..4ty+3 of a 64-row tile and, of the other operand's 64-row tile, rows
+// tx + 16j (j < 4). The tensor-core kernels build on mma_tf32.cuh.
 
 #pragma once
 

@@ -2,46 +2,60 @@
 //
 // Replaces the Pallas TPU kernel analytics_zoo_tpu/ops/attention.py:
 // _flash_kernel (launched by _flash_forward). It computes the same function,
-// not the same blocks: FA-2 forward with q pre-scaled by sm_scale*log2(e),
-// an exp2 online softmax in f32 with a running (acc, m, l) over key tiles,
-// bottom-right aligned causal masking (q_offset = s_k - s_q) that skips the
-// key tiles lying wholly above a query tile's diagonal and masks only the
-// diagonal tiles, l floored at 1e-30, and optionally lse2 = m + log2(l) per
-// query row for the backward. The TPU kernel's ones column appended to V
-// (a trick to get l out of the matrix unit) is not carried over: l is a sum
-// kept in registers.
+// not the same blocks: FA-2 forward with scores in the log2 domain
+// (q . k * sm_scale * log2(e)), an exp2 online softmax in f32 with a running
+// (acc, m, l) over key tiles, bottom-right aligned causal masking (q_offset
+// = s_k - s_q) that skips the key tiles lying wholly above a query tile's
+// diagonal and masks only the diagonal tiles, l floored at 1e-30, and
+// optionally lse2 = m + log2(l) per query row for the backward. The TPU
+// kernel's ones column appended to V (a trick to get l out of the matrix
+// unit) is not carried over: l is a sum kept in registers.
 //
 // Layout: q (B, Sq, H, D), k/v (B, Sk, H, D), o (B, Sq, H, D), read and
 // written through their (batch, seq, head) strides with a unit head_dim
-// stride, so no transposed copy is made. lse is (B*H, Sq) f32. Inputs are
-// f32 or bf16; all arithmetic is f32; o is stored in the input type.
-//
-// Design: one CTA of 256 threads per (batch*head, 64 query rows). The CTA
-// stages its Q tile once and loops over 64-key tiles of K and V in shared
-// memory (f32, rows padded to avoid bank conflicts). Thread (ty, tx) of a
-// 16x16 grid owns query rows 4ty..4ty+3 and, of each 64-wide tile, the
-// columns tx + 16j: it computes a 4x4 block of scores with scalar FMAs,
-// reduces the row max over the 16 threads of its row group with warp
-// shuffles, writes P to shared memory, and accumulates its 4 x D/16 block
-// of the output. l is kept as per-thread partial sums and reduced once at
-// the end.
+// stride and 16-byte aligned rows (the wrapper copies an operand that is
+// not), so the strided views of a fused qkv projection are read in place.
+// lse is (B*H, Sq) f32. Inputs are f32 or bf16; o is stored in the input
+// type.
 //
 // What bounds it on the H100: at the serving shape (B=32, S=128, H=12,
-// D=64) the work is 4*B*H*S^2*D = 1.61 GFLOP over 50 MB of q, k, v and o
-// in f32. At the card's 67 TFLOP/s of f32 FMA outside the tensor cores the
-// operations take 24 us and the bytes 15 us at 3.35 TB/s, so f32 is bound
-// by operations on the CUDA cores, which is the unit this kernel uses; the
-// scores never reach device memory. Each FMA here costs half a shared-memory
-// load (4 Q + 4 K values feed 16 FMAs), so shared-memory bandwidth, not the
-// FMA rate, is the kernel's own limit. In bf16 the bound moves to the bytes
-// (7.5 us against 1.6 us of tensor-core work); this kernel does not use the
-// tensor cores. mma.sync/wgmma tiles with TMA loads are later work.
+// D=64, f32) the function reads q, k, v and writes o, 50.3 MB, 15.0 us at
+// 3.35 TB/s, and does 4*B*H*S^2*D = 1.61 GFLOP of products. At f32
+// accuracy on the TF32 tensor cores (three passes, 495 TFLOP/s) those take
+// 9.8 us, so the kernel is bound by bytes; on the CUDA cores (67 TFLOP/s)
+// the products alone would take 24 us. In bf16 one pass per product.
+//
+// Design: the products run on the tensor cores in 3xTF32 (mma_tf32.cuh):
+// mma.sync m16n8k8 with every f32 operand split once into tf32 hi and lo,
+// three passes per product, f32 accumulators; bf16 operands are exact in
+// tf32 and skip the passes on their lo. One CTA of 4 warps per
+// (batch*head, 64 query rows), FA-2 style: each warp owns 16 query rows and
+// keeps their output accumulator (16 x D), m and l in registers; the row
+// max and sum reduce over the 4 lanes of a quad. S = Q K^T comes out in the
+// accumulator layout, and P is fed to P V straight from those registers by
+// taking each k-step's keys in the permuted order of mma_tf32.cuh (no
+// shared-memory round trip, no shuffles). Q's fragments are split once and
+// held in registers at D <= 64 (64 registers in f32 at D = 64); at D = 128
+// they would not fit beside the 16 x 128 accumulator and are re-read from
+// shared memory per key tile. K and V tiles stream through a two-stage
+// cp.async ring (16 B per thread), so the next tile loads while the
+// current one is multiplied. Tiles are padded 16 bytes a row, which keeps
+// every fragment read conflict-free (mma_tf32.cuh).
+//
+// Shared memory per CTA: the Q tile and two stages of K and V, five 64-row
+// tiles: 87,040 B at D = 64 and 168,960 B at D = 128 in f32 (2 and 1 CTAs
+// per SM), 46,080 B and 87,040 B in bf16 (2 and 2, registers bounding the
+// first). Variants tried on the H100 at the main shape (Q re-read from
+// shared memory, 32-key tiles at 3 or 4 CTAs per SM, one K/V stage) gained
+// little, so the simplest stays.
 
-#include "flash_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-using namespace zoo_flash;
+using namespace zoo_mma;
+using zoo_flash::from_f;
+using zoo_flash::NEG_INF;
 
 struct Params {
   const void* q;
@@ -55,28 +69,33 @@ struct Params {
   int causal;
 };
 
-template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS;
+template <typename T, int D>
+constexpr size_t smem_bytes() {
+  return 5 * tile_elems<T, D>() * sizeof(T);   // Q, 2 stages of K and V
 }
 
+// The explicit 1 lets ptxas take up to 255 registers: without it ptxas
+// settled on fewer and spilled at D = 64.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
-  constexpr int DP = D + 1;    // padded row of the Q and K tiles
-  constexpr int DJ = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* Ps = Vs + BK * D;
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(Params p) {
+  constexpr bool EX = sizeof(T) == 2;   // bf16 is exact in tf32
+  constexpr int TILE = tile_elems<T, D>();
+  constexpr int KS = D / 8;             // k-steps of Q K^T, n-tiles of O
+  constexpr int NJ = ROWS / 8;          // n-tiles of S, k-steps of P V
+  constexpr bool QREG = D <= 64;        // Q's fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* KV = Qs + TILE;   // stage st: K at KV + 2 st TILE, V right after it
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = warp * 16;   // this warp's rows of the query tile
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = blockIdx.y * ROWS;
   const int q_off = p.Sk - p.Sq;
 
   const T* qp = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
@@ -84,144 +103,174 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   const T* vp = static_cast<const T*>(p.v) + b * p.vb + h * p.vh;
   T* op = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i - (i / D) * D;
-    const int s = q0 + r;
-    Qs[r * DP + c] = s < p.Sq ? to_f(qp[s * p.qs + c]) * p.scale2 : 0.f;
-  }
+  // causal: the last query row of this tile sees keys <= q_off + q0 + 63
+  const int k_end = p.causal ? min(p.Sk, q_off + q0 + ROWS) : p.Sk;
+  const int n_kt = (k_end + ROWS - 1) / ROWS;
+  cp_tile<T, D>(Qs, qp, p.qs, q0, p.Sq);
+  cp_tile<T, D>(KV, kp, p.ks, 0, p.Sk);
+  cp_tile<T, D>(KV + TILE, vp, p.vs, 0, p.Sk);
+  cp_async_commit();
 
-  float acc[4][DJ];
-  float m[4], l[4];
+  float o[KS][4];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
+  FragA qf[QREG ? KS : 1];
 
-  // causal: the last query row of this tile sees keys <= q_off + q0 + BQ-1
-  const int k_end = p.causal ? min(p.Sk, q_off + q0 + BQ) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile's K, V and P are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i - (i / D) * D;
-      const int s = k0 + r;
-      const bool ok = s < p.Sk;
-      Ks[r * DP + c] = ok ? to_f(kp[s * p.ks + c]) : 0.f;
-      Vs[r * D + c] = ok ? to_f(vp[s * p.vs + c]) : 0.f;
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * ROWS;
+    if (it + 1 < n_kt) {   // the next K/V tile loads while this one runs
+      T* nx = KV + ((it + 1) & 1) * 2 * TILE;
+      cp_tile<T, D>(nx, kp, p.ks, k0 + ROWS, p.Sk);
+      cp_tile<T, D>(nx + TILE, vp, p.vs, k0 + ROWS, p.Sk);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    float sc[4][4];
+    const T* Ks = KV + (it & 1) * 2 * TILE;
+    const T* Vs = Ks + TILE;
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * DP + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = Ks[(tx + 16 * j) * DP + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bb[j], sc[i][j]);
+        for (int ks = 0; ks < KS; ++ks)
+          qf[ks] = a_frag<EX, T, D>(Qs, r0, 8 * ks, g, t);
+      }
     }
 
-    // mask only the diagonal tiles (causal) and the ragged last tile
-    const bool diag = p.causal && (q_off + q0 < k0 + BK - 1);
-    const bool ragged = k0 + BK > p.Sk;
-    if (diag || ragged) {
+    // S = Q K^T: 16 rows x 64 keys per warp, eight 16 x 8 tiles
+    float s[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qpos = q_off + q0 + ty * 4 + i;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          if (kpos >= p.Sk || (p.causal && qpos < kpos)) sc[i][j] = NEG_INF;
+      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      FragA a;
+      if constexpr (QREG) a = qf[ks];
+      else a = a_frag<EX, T, D>(Qs, r0, 8 * ks, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma3<EX, EX>(s[j], a, b_frag_t<EX, T, D>(Ks, 8 * j, 8 * ks, g, t));
+    }
+
+    // into the log2 domain; mask only the diagonal (causal) and ragged tiles
+    const bool diag = p.causal && (q_off + q0 < k0 + ROWS - 1);
+    const bool ragged = k0 + ROWS > p.Sk;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[j][r] *= p.scale2;
+        if (diag || ragged) {
+          const int kpos = k0 + 8 * j + 2 * t + (r & 1);
+          const int qpos = q_off + q0 + r0 + g + 8 * (r >> 1);
+          if (kpos >= p.Sk || (p.causal && qpos < kpos)) s[j][r] = NEG_INF;
         }
       }
-    }
 
+    // online softmax: rows g (c0, c1) and g + 8 (c2, c3) of the warp's 16
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+    for (int j = 0; j < NJ; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = exp2f(m[i] - m_new);
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
       m[i] = m_new;
-      float rs = 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = exp2f(sc[i][j] - m_new);
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = pv;
-        rs += pv;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[j][r] = exp2f(s[j][r] - m[r >> 1]);
+        rs[r >> 1] += s[j][r];
       }
-      l[i] = l[i] * corr + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[n][r] *= corr[r >> 1];
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[DJ];
+    // O += P V, P straight from the S accumulators (permuted key order)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PS + kk];
+    for (int j = 0; j < NJ; ++j) {
+      const FragA a = c_as_a<false>(s[j]);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int n = 0; n < KS; ++n)
+        mma3<false, EX>(o[n], a,
+                        b_frag_perm<EX, T, D>(Vs, 8 * j, 8 * n, g, t));
     }
+    __syncthreads();   // this stage is consumed before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float ls = l[i];
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    const int row = q0 + r0 + g + 8 * i;
+    if (row < p.Sq) {
+      const float inv = 1.f / l[i];
+      T* orow = op + row * p.os;
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      ls += __shfl_xor_sync(0xffffffffu, ls, off);
-    ls = fmaxf(ls, 1e-30f);
-    const int s = q0 + ty * 4 + i;
-    if (s < p.Sq) {
-      const float inv = 1.f / ls;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        op[s * p.os + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
-      if (p.lse != nullptr && tx == 0)
-        p.lse[static_cast<long long>(bh) * p.Sq + s] = m[i] + log2f(ls);
+      for (int n = 0; n < KS; ++n) {
+        orow[8 * n + 2 * t] = from_f<T>(o[n][2 * i] * inv);
+        orow[8 * n + 2 * t + 1] = from_f<T>(o[n][2 * i + 1] * inv);
+      }
+      if (p.lse != nullptr && t == 0)
+        p.lse[static_cast<long long>(bh) * p.Sq + row] = m[i] + log2f(l[i]);
     }
   }
 }
 
+// With info != nullptr nothing is launched: info[0] gets the dynamic shared
+// memory of one CTA in bytes and info[1] the CTAs that fit on one SM.
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+cudaError_t launch(const Params& p, cudaStream_t stream, int* info) {
+  constexpr size_t bytes = smem_bytes<T, D>();
   // above 48 KB of dynamic shared memory the kernel must opt in, on the
   // current device; set on every launch so no device is missed
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(p);
+  if (info != nullptr) {
+    info[0] = static_cast<int>(bytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        info + 1, flash_fwd_kernel<T, D>, THREADS, bytes);
+  }
+  const dim3 grid(p.B * p.H, (p.Sq + ROWS - 1) / ROWS);
+  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
+cudaError_t launch_d(const Params& p, int d, cudaStream_t stream,
+                     int* info) {
   switch (d) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16>(p, stream, info);
+    case 32: return launch<T, 32>(p, stream, info);
+    case 64: return launch<T, 64>(p, stream, info);
+    case 128: return launch<T, 128>(p, stream, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_t(const Params& p, int dtype, int d, cudaStream_t stream,
+                     int* info) {
+  switch (dtype) {
+    case 0: return launch_d<float>(p, d, stream, info);
+    case 1: return launch_d<__nv_bfloat16>(p, d, stream, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -240,18 +289,18 @@ int zoo_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float scale2, int causal, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 ||
       static_cast<long long>(B) * H > 2147483647LL ||
-      (Sq + BQ - 1) / BQ > 65535)
+      (Sq + ROWS - 1) / ROWS > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk,
            qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh, scale2, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case 0: e = launch_d<float>(p, D, st); break;
-    case 1: e = launch_d<__nv_bfloat16>(p, D, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_t(p, dtype, D, static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// Shared memory per CTA and CTAs per SM of one instance (info[0], info[1]),
+// on the current device. Returns a cudaError_t.
+int zoo_flash_fwd_occupancy(int dtype, int D, int* info) {
+  return static_cast<int>(launch_t(Params{}, dtype, D, nullptr, info));
 }
 
 }  // extern "C"

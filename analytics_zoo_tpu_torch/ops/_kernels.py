@@ -6,7 +6,10 @@ library is keyed by a hash of the sources (``csrc/*.cu`` and ``*.cuh``) and
 of the flags, and built at first use into ``analytics_zoo_tpu_torch/build/``;
 ``build_all`` starts one ``nvcc`` per source, all at once. A failed build
 raises with nvcc's output, a failed launch with the CUDA error string:
-nothing falls back to the plain versions.
+nothing falls back to the plain versions. ptxas's resource report
+(registers, spills of every kernel instance) is kept beside each library
+and read by ``ptxas_report``; ``occupancy`` asks a built library for a
+kernel's shared memory and CTAs per SM on the current device.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -18,6 +21,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas=-v"]
 
 _c_p, _c_i, _c_ll, _c_f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
@@ -50,6 +55,9 @@ _SIGNATURES = {
                       [_c_p] * 8 + [_c_i] * 6 + [_c_ll] * 15
                       + [_c_f, _c_f, _c_i, _c_p]),
 }
+# libraries that answer occupancy queries: (dtype, D, int[2] out)
+_OCCUPANCY = {"flash_fwd": "zoo_flash_fwd_occupancy",
+              "flash_bwd_dkv": "zoo_flash_bwd_dkv_occupancy"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -86,6 +94,10 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{_digest(name)}.so")
 
 
+def _log_path(name: str) -> str:
+    return library_path(name)[:-3] + ".ptxas.txt"
+
+
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp, final) or None
     when the library is already built."""
@@ -109,6 +121,9 @@ def _finish_build(name: str, started) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {name} "
                            f"(rc={proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(out)
+    os.replace(f"{tmp}.log", final[:-3] + ".ptxas.txt")
     os.replace(tmp, final)       # atomic: a reader never sees half a file
 
 
@@ -121,6 +136,11 @@ def build_all(names=None) -> Dict[str, str]:
         for n, s in started:
             _finish_build(n, s)
     return {n: library_path(n) for n in names}
+
+
+def entry_point(name: str) -> str:
+    """The name of ``csrc/<name>.cu``'s C launcher."""
+    return _SIGNATURES[name][0]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -141,6 +161,55 @@ def load(name: str) -> ctypes.CDLL:
             lib.zoo_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_INSTANCE = re.compile(
+    r"([a-z][a-z_]*?)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> List[Dict]:
+    """ptxas's report for each kernel instance of a built library:
+    [{"kernel", "dtype", "head_dim", "registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}]."""
+    with open(_log_path(name)) as f:
+        text = f.read()
+    out: List[Dict] = []
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            inst = _INSTANCE.search(m.group(1))
+            if inst is None:
+                out.append(None)
+                continue
+            out.append({"kernel": inst.group(1),
+                        "dtype": "f32" if inst.group(2) == "f" else "bf16",
+                        "head_dim": int(inst.group(3))})
+        elif out and out[-1] is not None:
+            m = _SPILLS.search(line)
+            if m:
+                out[-1].update(stack_bytes=int(m.group(1)),
+                               spill_store_bytes=int(m.group(2)),
+                               spill_load_bytes=int(m.group(3)))
+            m = _REGS.search(line)
+            if m:
+                out[-1]["registers"] = int(m.group(1))
+    return [r for r in out if r is not None]
+
+
+def occupancy(name: str, dtype_code: int, head_dim: int) -> Dict[str, int]:
+    """Dynamic shared memory per CTA and CTAs per SM of one instance of a
+    kernel, from the CUDA runtime on the current device."""
+    lib = load(name)
+    fn = getattr(lib, _OCCUPANCY[name])
+    fn.argtypes = [_c_i, _c_i, ctypes.POINTER(_c_i)]
+    fn.restype = ctypes.c_int
+    info = (_c_i * 2)()
+    check(lib, fn(dtype_code, head_dim, info), f"{name} occupancy")
+    return {"smem_bytes": info[0], "ctas_per_sm": info[1]}
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

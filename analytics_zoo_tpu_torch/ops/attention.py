@@ -16,7 +16,10 @@ kernel's arithmetic:
 * ``flash_bwd_dkv`` -> ``csrc/flash_bwd_dkv.cu`` (``_flash_bwd_dkv_kernel``),
   plain version ``flash_bwd_dkv_plain``. ``flash_bwd_plain`` runs both.
 
-There is no fallback from the card to a plain version.
+There is no fallback from the card to a plain version. B1 and B3 run their
+products on the TF32 tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``);
+``tf32_split`` and ``mm_3xtf32`` emulate that arithmetic on the CPU, for
+the tests, through the plain versions' ``mm`` argument.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -117,19 +120,56 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernels' arithmetic, emulated (tests only)
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 (10 mantissa bits) rounded to nearest, ties away from
+    zero, on the bit pattern: add half a tf32 ulp to the magnitude, drop
+    the low 13 bits (``cvt.rna.tf32.f32`` on finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split f32 ``x`` into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, as
+    B1 and B3 split every f32 operand before the tensor cores see it."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, *,
+              passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as B1 and B3 take it on the TF32 tensor cores:
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (``passes=3``), or ``a_hi b_hi``
+    alone (``passes=1``, plain TF32). A product of two tf32 values is exact
+    in f32, and the sums are f32, as in the kernels' accumulators."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+# ---------------------------------------------------------------------------
 # flash forward: the kernel's plain version, its wrapper, and the dispatcher
 # ---------------------------------------------------------------------------
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False,
-                          sm_scale: Optional[float] = None
+                          sm_scale: Optional[float] = None,
+                          mm: Callable = torch.matmul
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's arithmetic in plain PyTorch: f32 throughout,
     q pre-scaled by ``sm_scale*log2(e)``, exp2 online softmax over
     ``KERNEL_BLOCK_K``-key tiles, bottom-right causal mask, ``l`` floored at
     1e-30. Returns ``(out, lse2)``: out (B, Sq, H, D) in the input dtype and
     the log2-domain logsumexp ``m + log2 l`` as (B*H, Sq, 1) f32, the
-    layout the JAX package's ``_flash_forward(..., with_lse=True)`` gives."""
+    layout the JAX package's ``_flash_forward(..., with_lse=True)`` gives.
+    ``mm`` takes the two products (``mm_3xtf32`` emulates the kernel's)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, s_q, h, d = q.shape
@@ -147,7 +187,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # exp2(NEG_INF - m) == 0 and its correction exp2(0) == 1, exactly.
     for k0 in range(0, s_k, KERNEL_BLOCK_K):
         k1 = min(k0 + KERNEL_BLOCK_K, s_k)
-        s = q2 @ kf[:, :, k0:k1].transpose(-1, -2)
+        s = mm(q2, kf[:, :, k0:k1].transpose(-1, -2))
         if causal:
             k_pos = k0 + torch.arange(k1 - k0, device=q.device)[None, :]
             s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
@@ -155,7 +195,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp2(s - m_new)
         correction = torch.exp2(m - m_new)
         l = l * correction + p.sum(dim=-1, keepdim=True)
-        acc = acc * correction + p @ vf[:, :, k0:k1]
+        acc = acc * correction + mm(p, vf[:, :, k0:k1])
         m = m_new
     l = torch.clamp(l, min=1e-30)
     out = (acc / l).to(q.dtype).permute(0, 2, 1, 3).contiguous()
@@ -188,6 +228,40 @@ def _check_kernel_inputs(q, k, v, causal, what="flash_fwd"):
         raise ValueError(f"{what}: empty sequence")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """B1 and B3 copy rows into shared memory 16 bytes at a time, so each
+    row of an operand must start on a 16-byte boundary: a unit head_dim
+    stride, a 16-byte aligned base and batch, seq and head strides that are
+    multiples of 16 bytes. The strided q/k/v views of a fused projection
+    are; anything else is copied once into a fresh contiguous tensor."""
+    st = t.stride()
+    # element sizes are powers of two, so OR-ing the strides tests all three
+    if (st[3] == 1 and t.data_ptr() % 16 == 0
+            and (st[0] | st[1] | st[2]) * t.element_size() % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call ``csrc/<name>.cu``'s launcher with ``args`` and PyTorch's
+    current stream on ``device`` (made the current device for the call if
+    it is not); raise with the CUDA error string if the launch is
+    refused. The raw stream handle and the skipped device switch keep the
+    host's cost of a launch below the kernel's own time at the main
+    shape."""
+    from . import _kernels
+
+    lib = _kernels.load(name)
+    fn = getattr(lib, _kernels.entry_point(name))
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    _kernels.check(lib, err, name)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, sm_scale: Optional[float] = None,
               with_lse: bool = False):
@@ -203,28 +277,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out, lse2 = flash_attention_plain(q, k, v, causal=causal,
                                           sm_scale=sm_scale)
         return (out, lse2) if with_lse else out
-    from . import _kernels
-
     _check_kernel_inputs(q, k, v, causal)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     b, s_q, h, d = q.shape
-    s_k = k.shape[1]
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, s_q, 1), dtype=torch.float32,
                        device=q.device) if with_lse else None)
-    lib = _kernels.load("flash_fwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.zoo_flash_fwd(
+    _launch("flash_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, s_q, s_k, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            ctypes.c_float(sm_scale * LOG2_E), int(bool(causal)), stream)
-    _kernels.check(lib, err, "flash_fwd")
+            _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d,
+            *_strides(q, k, v, out),
+            ctypes.c_float(sm_scale * LOG2_E), int(bool(causal)))
     with _launch_lock:          # serving workers may launch concurrently
         flash_fwd.launches += 1
     return (out, lse) if with_lse else out
@@ -254,16 +318,17 @@ def _bwd_delta(g, o):
     return delta.permute(0, 2, 1).reshape(b * h, s_q, 1)
 
 
-def _bwd_tile_plain(q2, k_t, v_t, g, L, delta, causal, q_pos, k0):
+def _bwd_tile_plain(q2, k_t, v_t, g, L, delta, causal, q_pos, k0,
+                    mm=torch.matmul):
     """One (query rows, key tile) block of the backward, as the kernels do
     it: rebuild P = exp2(q2 k^T - L), dP = g v^T, dS = P (dP - delta).
     Masked scores are NEG_INF, so their P is exactly 0."""
-    s = q2 @ k_t.transpose(-1, -2)
+    s = mm(q2, k_t.transpose(-1, -2))
     if causal:
         k_pos = k0 + torch.arange(k_t.shape[-2], device=q2.device)[None, :]
         s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
     p = torch.exp2(s - L)
-    ds = p * (g @ v_t.transpose(-1, -2) - delta)
+    ds = p * (mm(g, v_t.transpose(-1, -2)) - delta)
     return p, ds
 
 
@@ -295,10 +360,12 @@ def flash_bwd_dq_plain(q, k, v, o, lse2, g, *, causal: bool = False,
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse2, delta, *, causal: bool = False,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None,
+                        mm: Callable = torch.matmul):
     """B3's arithmetic in plain PyTorch, in f32: walk the query tiles,
     dv += P^T g and dk += dS^T q2, then dk times 1/log2(e) (q2 carried the
-    log2 prescale). Returns (dk, dv) in the input dtype."""
+    log2 prescale). Returns (dk, dv) in the input dtype. ``mm`` takes the
+    four products (``mm_3xtf32`` emulates the kernel's)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, s_q, h, _ = q.shape
@@ -311,9 +378,9 @@ def flash_bwd_dkv_plain(q, k, v, g, lse2, delta, *, causal: bool = False,
         q_pos = (s_k - s_q) + torch.arange(q0, q1, device=q.device)[:, None]
         q_t, g_t = q2[:, :, q0:q1], gf[:, :, q0:q1]
         p, ds = _bwd_tile_plain(q_t, kf, vf, g_t, L[:, :, q0:q1],
-                                d4[:, :, q0:q1], causal, q_pos, 0)
-        dv = dv + p.transpose(-1, -2) @ g_t
-        dk = dk + ds.transpose(-1, -2) @ q_t
+                                d4[:, :, q0:q1], causal, q_pos, 0, mm)
+        dv = dv + mm(p.transpose(-1, -2), g_t)
+        dk = dk + mm(ds.transpose(-1, -2), q_t)
     return _to_bshd(dk * (1.0 / LOG2_E), k.dtype), _to_bshd(dv, v.dtype)
 
 
@@ -347,9 +414,10 @@ def _check_bwd_inputs(what, q, k, v, g, lse2, causal, *extra):
 
 
 def _strides(*ts):
+    """The (batch, seq, head) strides of each tensor, in order."""
     out = []
     for t in ts:
-        out += [t.stride(0), t.stride(1), t.stride(2)]
+        out += t.stride()[:3]
     return out
 
 
@@ -375,8 +443,6 @@ def flash_bwd_dq(q, k, v, o, lse2, g, *, causal: bool = False,
     if not q.is_cuda:
         return flash_bwd_dq_plain(q, k, v, o, lse2, g, causal=causal,
                                   sm_scale=sm_scale)
-    from . import _kernels
-
     _check_bwd_inputs("flash_bwd_dq", q, k, v, g, lse2, causal)
     if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
         raise ValueError("flash_bwd_dq: o must match q in shape, dtype "
@@ -386,17 +452,13 @@ def flash_bwd_dq(q, k, v, o, lse2, g, *, causal: bool = False,
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, s_q, 1), dtype=torch.float32,
                         device=q.device)
-    lib = _kernels.load("flash_bwd_dq")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.zoo_flash_bwd_dq(
+    _launch("flash_bwd_dq", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             g.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d,
             *_strides(q, k, v, o, g, dq),
             ctypes.c_float(sm_scale * LOG2_E), ctypes.c_float(sm_scale),
-            int(bool(causal)), stream)
-    _kernels.check(lib, err, "flash_bwd_dq")
+            int(bool(causal)))
     with _launch_lock:
         flash_bwd_dq.launches += 1
     return dq, delta
@@ -419,26 +481,20 @@ def flash_bwd_dkv(q, k, v, g, lse2, delta, *, causal: bool = False,
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, g, lse2, delta, causal=causal,
                                    sm_scale=sm_scale)
-    from . import _kernels
-
     _check_bwd_inputs("flash_bwd_dkv", q, k, v, g, lse2, causal,
                       ("delta", delta))
-    q, k, v, g = (_unit_last(t) for t in (q, k, v, g))
+    q, k, v, g = _aligned16(q), _aligned16(k), _aligned16(v), _aligned16(g)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     dk = torch.empty((b, s_k, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    lib = _kernels.load("flash_bwd_dkv")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.zoo_flash_bwd_dkv(
+    _launch("flash_bwd_dkv", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, s_q, s_k, d,
             *_strides(q, k, v, g, dk),
             ctypes.c_float(sm_scale * LOG2_E), ctypes.c_float(1.0 / LOG2_E),
-            int(bool(causal)), stream)
-    _kernels.check(lib, err, "flash_bwd_dkv")
+            int(bool(causal)))
     with _launch_lock:
         flash_bwd_dkv.launches += 1
     return dk, dv

@@ -45,10 +45,12 @@ SEQ = 128                   # request length: token ids, no input mask
 N_REQUESTS = 256
 BATCH = 32
 N_CPU_CHECK = 8             # requests re-run on the CPU for the logits check
-# Kernel vs plain tolerances. f32: both sum in f32 in a different order;
-# measured errors are ~1e-6 on outputs of magnitude <= 4. bf16: the output
-# is rounded to bf16 on both sides, so one ulp (2^-8 relative, 1.6e-2 at 4)
-# may separate them. lse2 is f32 on both sides.
+# Kernel vs plain tolerances. f32: both sum in f32 in a different order
+# (B1 and B3 take their products in 3xTF32 on the tensor cores, which keeps
+# f32 accuracy, but the tensor cores' accumulation truncates); measured
+# errors are up to 5e-6 on outputs of magnitude <= 4.
+# bf16: the output is rounded to bf16 on both sides, so one ulp (2^-8
+# relative, 1.6e-2 at 4) may separate them. lse2 is f32 on both sides.
 TOL_F32 = 1e-5
 TOL_BF16 = 2e-2
 TOL_LSE = 1e-5
@@ -71,10 +73,16 @@ TRAIN_ROWS, TRAIN_EPOCHS = 256, 2
 # nearly equal sums, so its low bits carry the forward's rounding).
 TOL_STEP_LOSS = 1e-5
 TOL_STEP_GRAD = 1e-3
-# Peaks of one H100 SXM (NVIDIA data sheet, dense): FP32 outside the tensor
-# cores, BF16 on the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Peaks of one H100 SXM (NVIDIA data sheet, dense): TF32 and BF16 on the
+# tensor cores, FP32 outside them, HBM3 bandwidth. An f32 product at f32
+# accuracy on the tensor cores takes three TF32 passes (3xTF32), so the
+# least time for f32 work is 3 * flops / 495 TFLOP/s; bf16 is one pass.
+# The CUDA-core figure is kept as a second bound (``bound_cuda_cores_ms``).
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
+PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
+TIMING_ROUNDS = 9           # rounds of kernel / library timed in turns
 
 
 def emit(obj):
@@ -101,12 +109,46 @@ def device_phase():
     return card
 
 
+def _sass_mma_count(path):
+    """Tensor-core instructions (HMMA) in a built library's SASS."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", path],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    return sum(1 for line in out.splitlines() if "HMMA" in line)
+
+
+def _cuda_tool(name):
+    from shutil import which
+    found = which(name) or f"/usr/local/cuda/bin/{name}"
+    if not os.path.exists(found):
+        fail(f"{name} not found")
+    return found
+
+
 def build_phase():
+    """Builds every kernel library; reports ptxas's registers and spills
+    per kernel instance, the HMMA count of each library's SASS, and the
+    shared memory and CTAs per SM of the tensor-core kernels."""
     from analytics_zoo_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
     libs = _kernels.build_all()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": {k: os.path.relpath(v) for k, v in libs.items()}})
+    seconds = time.perf_counter() - t0
+    ptxas = {name: _kernels.ptxas_report(name) for name in libs}
+    hmma = {name: _sass_mma_count(path) for name, path in libs.items()}
+    occupancy = {
+        name: {f"{dt}_d{d}": _kernels.occupancy(name, code, d)
+               for dt, code in (("f32", 0), ("bf16", 1)) for d in (64, 128)}
+        for name in ("flash_fwd", "flash_bwd_dkv")}
+    emit({"phase": "build", "seconds": round(seconds, 3),
+          "libraries": {k: os.path.relpath(v) for k, v in libs.items()},
+          "ptxas": ptxas, "sass_hmma": hmma, "occupancy": occupancy})
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        if hmma[name] == 0:
+            fail(f"{name}: no tensor-core (HMMA) instruction in its SASS")
+        for inst in ptxas[name]:
+            if inst["head_dim"] == 64 and (inst["spill_store_bytes"]
+                                           or inst["spill_load_bytes"]):
+                fail(f"{name} spills at D = 64: {inst}")
 
 
 def _qkv_views(b, s_q, s_k, h, d, dtype, gen):
@@ -502,30 +544,103 @@ def train_vs_cpu_phase(card):
         fail("training on the card disagrees with the CPU")
 
 
-def _time_ms(fn, reps=50, rounds=7):
-    """Median over rounds of the mean time of ``reps`` back-to-back calls,
-    from CUDA events."""
+def _span_ms(run, calls):
+    """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _eager(fn, reps):
+    """``reps`` back-to-back calls, issued from Python as a user would."""
+    def run():
+        for _ in range(reps):
+            fn()
+    return run
+
+
+def _graph(fn, reps):
+    """A CUDA graph of ``reps`` back-to-back calls: replaying it times the
+    device work alone, free of the host's cost of issuing each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return graph.replay
+
+
+def _time_in_turns(fns, reps=50, rounds=TIMING_ROUNDS, graphs=False):
+    """Times several callables in turns: each round runs them in order and
+    then in reverse (kernel, library, library, kernel), every span
+    ``reps`` calls, eager or (``graphs``) as one CUDA-graph replay.
+    Returns {name: [ms per call]}, 2 * rounds spans each; the i-th spans of
+    all names come from the same round."""
+    runs = {}
+    for name, fn in fns.items():
+        if graphs:
+            runs[name] = _graph(fn, reps)
+        else:
+            for _ in range(3):
+                fn()
+            runs[name] = _eager(fn, reps)
+    torch.cuda.synchronize()
+    samples = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            samples[name].append(_span_ms(runs[name], reps))
+    return samples
+
+
+def _profiled_ms(fn, calls=10, rounds=TIMING_ROUNDS):
+    """Device time per call of ``fn`` from torch.profiler, once per round:
+    the summed durations of the CUDA kernels (and copies) that ``calls``
+    calls launch, over ``calls``. For a call that does not capture in a
+    CUDA graph. The first session is discarded (it has come back without
+    device events), and so is any later one that has none."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    out = []
+    for _ in range(rounds + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        out.append(us / 1e3 / calls)
+    out = [x for x in out[1:] if x > 0]
+    if not out:
+        fail("the profiler saw no device time for the library call")
+    return out
+
+
+def _spread(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
 
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
-    q/k/v strided views of the fused projection): CUDA-event times of the
-    kernel, its plain version and the PyTorch call that computes the same
-    function, beside the bound computed from the shapes."""
+    q/k/v strided views of the fused projection): the kernel's device time
+    (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
+    that computes the same function (``library_ms``: graph replays in
+    turns for SDPA's forward, the profiler's device time for its backward,
+    which does not capture); both also eagerly in turns (``*_eager``,
+    which holds the host's cost of each call); the plain version's time;
+    and the bound from the shapes."""
     from analytics_zoo_tpu_torch.ops import attention as at
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -536,32 +651,40 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches):
     kept = [fn.launches for fn in kernels]
     o, lse2 = at.flash_fwd(q, k, v, with_lse=True)
     _, delta = at.flash_bwd_dq(q, k, v, o, lse2, g)
-    ms = {"flash_fwd": _time_ms(lambda: at.flash_fwd(q, k, v)),
-          "flash_bwd_dq": _time_ms(
-              lambda: at.flash_bwd_dq(q, k, v, o, lse2, g)),
-          "flash_bwd_dkv": _time_ms(
-              lambda: at.flash_bwd_dkv(q, k, v, g, lse2, delta))}
-    plain_ms = {
-        "flash_fwd": _time_ms(lambda: at.flash_attention_plain(q, k, v),
-                              reps=10),
-        "flash_bwd_dq": _time_ms(
-            lambda: at.flash_bwd_dq_plain(q, k, v, o, lse2, g), reps=10),
-        "flash_bwd_dkv": _time_ms(
-            lambda: at.flash_bwd_dkv_plain(q, k, v, g, lse2, delta),
-            reps=10)}
-    for fn, n in zip(kernels, kept):
-        fn.launches = n     # timing launches are not the main paths'
     # the library yardstick: SDPA on the same strided (B, H, S, D) views;
-    # its backward is its forward+backward minus its forward
+    # its backward is autograd.grad of one fixed forward output
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fwd_lib = _time_ms(lambda: sdpa(qt, kt, vt))
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    lib_out = sdpa(*leaves)
     gt = g.transpose(1, 2)
-    fwd_grad = _time_ms(lambda: sdpa(*leaves))
-    fwd_bwd = _time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves,
-                                                   gt))
-    bwd_lib = fwd_bwd - fwd_grad
+    fwd_fns = {"flash_fwd": lambda: at.flash_fwd(q, k, v),
+               "library": lambda: sdpa(qt, kt, vt)}
+    bwd_fns = {
+        "flash_bwd_dq": lambda: at.flash_bwd_dq(q, k, v, o, lse2, g),
+        "flash_bwd_dkv": lambda: at.flash_bwd_dkv(q, k, v, g, lse2, delta),
+        "library": lambda: torch.autograd.grad(lib_out, leaves, gt,
+                                               retain_graph=True)}
+    # device time: CUDA-graph replays in turns; SDPA's backward does not
+    # capture in a graph, so its device time comes from the profiler
+    dev = _time_in_turns(fwd_fns, graphs=True)
+    lib_bwd = _profiled_ms(bwd_fns["library"])
+    dev.update(_time_in_turns({n: f for n, f in bwd_fns.items()
+                               if n != "library"}, graphs=True))
+    # eager, as a user calls them: each kernel in turns with its library call
+    fwd = _time_in_turns(fwd_fns)
+    bwd = _time_in_turns(bwd_fns)
+    pair, dev_pair = ([a + c for a, c in zip(t["flash_bwd_dq"],
+                                             t["flash_bwd_dkv"])]
+                      for t in (bwd, dev))
+    plain_ms = {name: statistics.median(t) for name, t in _time_in_turns({
+        "flash_fwd": lambda: at.flash_attention_plain(q, k, v),
+        "flash_bwd_dq": lambda: at.flash_bwd_dq_plain(q, k, v, o, lse2, g),
+        "flash_bwd_dkv": lambda: at.flash_bwd_dkv_plain(q, k, v, g, lse2,
+                                                        delta)},
+        reps=10).items()}
+    for fn, n in zip(kernels, kept):
+        fn.launches = n     # timing launches are not the main paths'
 
     n_el = b * s * h * d * q.element_size()     # one (B, S, H, D) tensor
     n_row = b * h * s * 4                       # one (B*H, S) f32 vector
@@ -572,39 +695,62 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches):
         # reads q k v g, lse and delta, writes dk and dv
         "flash_bwd_dkv": (8.0 * b * h * s * s * d,
                           6.0 * n_el + 2.0 * n_row)}
-    meta = {
+    tensor_cores = "tensor cores, 3xTF32 mma.sync m16n8k8"
+    meta = {  # name: (TPU kernel, launches, error, eager ms, library, unit)
         "flash_fwd": ("analytics_zoo_tpu/ops/attention.py:136",
-                      serve_launches, errs["f32"], fwd_lib, None),
+                      serve_launches, errs["f32"], fwd["flash_fwd"],
+                      dev["library"], tensor_cores),
         "flash_bwd_dq": ("analytics_zoo_tpu/ops/attention.py:398",
                          train_launches["flash_bwd_dq"],
-                         bwd_errs["f32"]["dq"], bwd_lib,
-                         ["flash_bwd_dq", "flash_bwd_dkv"]),
+                         bwd_errs["f32"]["dq"], bwd["flash_bwd_dq"],
+                         lib_bwd, "CUDA cores, scalar f32 FMA"),
         "flash_bwd_dkv": ("analytics_zoo_tpu/ops/attention.py:438",
                           train_launches["flash_bwd_dkv"],
                           max(bwd_errs["f32"]["dk"], bwd_errs["f32"]["dv"]),
-                          bwd_lib, ["flash_bwd_dq", "flash_bwd_dkv"])}
+                          bwd["flash_bwd_dkv"], lib_bwd, tensor_cores)}
     out = []
-    for name, (replaces, launches, err, lib_ms, covers) in meta.items():
+    for name, (replaces, launches, err, eager, lib, unit) in meta.items():
         flops, nbytes = work[name]
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = (3.0 * flops / PEAK_TF32 if dtype == torch.float32
+                 else flops / PEAK_BF16)
+        t_cuda_cores = flops / PEAK_F32_CUDA_CORES
+        ms_s, lib_s = _spread(dev[name]), _spread(lib)
         entry = {"name": name, "route": "cuda",
                  "source": f"analytics_zoo_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces, "launches": launches,
-                 "max_abs_err": err, "ms": ms[name],
+                 "max_abs_err": err, "ms": ms_s["median"],
                  "plain_ms": plain_ms[name],
                  "bound_ms": max(t_ops, t_bytes) * 1e3,
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                 "library_ms": lib_ms, "shape": [b, s, h, d],
-                 "dtype": "float32", "flops": flops, "bytes": nbytes}
+                 "library_ms": lib_s["median"],
+                 "ms_min": ms_s["min"], "ms_max": ms_s["max"],
+                 "library_ms_min": lib_s["min"],
+                 "library_ms_max": lib_s["max"],
+                 "timing": (f"CUDA-graph replays of 50 calls, in turns "
+                            f"({TIMING_ROUNDS} rounds x 2 spans)"),
+                 "ms_eager": _spread(eager),
+                 "bound_cuda_cores_ms": max(t_cuda_cores, t_bytes) * 1e3,
+                 "unit": unit, "shape": [b, s, h, d], "dtype": "float32",
+                 "flops": flops, "bytes": nbytes}
         if name == "flash_fwd":
             entry["launches_by_path"] = {
                 "serve": serve_launches,
                 "train": train_launches["flash_fwd"]}
+            entry["library"] = "scaled_dot_product_attention forward"
+            entry["library_timing"] = "CUDA-graph replays, in turns"
+            entry["library_ms_eager"] = _spread(fwd["library"])
         else:
             entry["launches_by_path"] = {"train": launches}
-            entry["library_covers"] = covers
+            entry["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
             entry["library"] = ("scaled_dot_product_attention backward "
-                                "(forward+backward minus forward)")
+                                "(autograd.grad of one forward output)")
+            entry["library_timing"] = (
+                f"torch.profiler device time, {len(lib_bwd)} rounds of 10 "
+                f"calls (it does not capture in a CUDA graph)")
+            entry["library_ms_eager"] = _spread(bwd["library"])
+            entry["covered_pair_ms"] = _spread(dev_pair)
+            entry["covered_pair_ms_eager"] = _spread(pair)
         out.append(entry)
     emit({"kernels": out})
 

@@ -9,8 +9,18 @@ round the output to bf16 (8 bits of mantissa, one ulp is 2^-8 relative),
 and the JAX kernel also rounds q*scale and the probabilities to bf16
 before its matmuls while the port keeps them in f32, so the two may differ
 by a few bf16 ulps of outputs of magnitude up to ~2.
+
+The 3xTF32 tests run the plain versions with every product emulated as
+kernels B1 and B3 take it on the tensor cores (``mm_3xtf32``) and hold them
+against the JAX package at 1e-5 relative to each result's largest value,
+the kernels' f32 parity on the card; with one TF32 pass the same runs miss
+that tolerance (measured ~4e-4 against ~5e-7 with three), so the
+tolerance tells the two designs apart.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -164,3 +174,131 @@ def test_kernel_matches_plain_on_card(dtype, tol):
         pout, plse = tattn.flash_attention_plain(q, k, v, causal=causal)
         assert (out.float() - pout.float()).abs().max().item() <= tol
         assert (lse - plse).abs().max().item() <= 1e-5
+
+
+def test_tf32_split_rounds_to_nearest_away_like_cvt_rna():
+    x = torch.tensor([1.0 + 2.0 ** -11,         # a tie: rounds away
+                      -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23,   # below the tie
+                      1.0 + 3 * 2.0 ** -11,      # a tie above an odd ulp
+                      3.0, 0.0], dtype=torch.float32)
+    hi, lo = tattn.tf32_split(x)
+    want_hi = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+               1.0 + 2.0 ** -9, 3.0, 0.0]
+    assert hi.tolist() == want_hi
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    rng = np.random.RandomState(0)
+    r = torch.from_numpy(rng.randn(4096).astype(np.float32))
+    hi, lo = tattn.tf32_split(r)
+    # hi + lo carries x to 2^-21 of its magnitude (22 of f32's 24 bits)
+    assert ((hi + lo - r).abs() <= r.abs() * 2.0 ** -21).all()
+    assert ((hi - r).abs() <= r.abs() * 2.0 ** -11).all()
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+TF32_TOL = 1e-5      # the kernels' f32 parity, relative to the largest value
+
+
+def _check_tf32(passes, errs):
+    if passes == 3:
+        assert max(errs.values()) <= TF32_TOL, errs
+    else:       # plain TF32 fails the same check
+        assert max(errs.values()) > TF32_TOL, errs
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("s_q,s_k,causal", CASES)
+def test_3xtf32_forward_matches_jax(s_q, s_k, causal, passes):
+    """B1's recurrence with every product in 3xTF32 against the JAX flash
+    kernel (Pallas interpret mode): output and lse2."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s_q=s_q, s_k=s_k))
+    sm_scale = 1.0 / np.sqrt(16)
+    jout, jlse = jattn._flash_forward(jq, jk, jv, causal, sm_scale, 8, 8,
+                                      interpret=True, with_lse=True)
+    mm = functools.partial(tattn.mm_3xtf32, passes=passes)
+    out, lse = tattn.flash_attention_plain(tq, tk, tv, causal=causal,
+                                           sm_scale=sm_scale, mm=mm)
+    _check_tf32(passes, {"out": _rel(_np(out), _np(jout)),
+                         "lse2": _rel(_np(lse), _np(jlse))})
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("s_q,s_k,causal", CASES)
+def test_3xtf32_dkv_matches_jax_vjp(s_q, s_k, causal, passes):
+    """The forward and B3's dK/dV recurrence with every product in 3xTF32
+    against jax.grad through the JAX flash_attention (its Pallas backward
+    in interpret mode)."""
+    q, k, v = _qkv(s_q=s_q, s_k=s_k)
+    g = np.random.RandomState(1).randn(*q.shape).astype(np.float32)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g))
+
+    def loss(q, k, v):
+        out = jattn.flash_attention(q, k, v, causal=causal, block_q=8,
+                                    block_k=8)
+        return jnp.sum(out * jg)
+
+    _, jdk, jdv = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    mm = functools.partial(tattn.mm_3xtf32, passes=passes)
+    out, lse = tattn.flash_attention_plain(tq, tk, tv, causal=causal, mm=mm)
+    delta = tattn._bwd_delta(tg, out)
+    dk, dv = tattn.flash_bwd_dkv_plain(tq, tk, tv, tg, lse, delta,
+                                       causal=causal, mm=mm)
+    _check_tf32(passes, {"dk": _rel(_np(dk), _np(jdk)),
+                         "dv": _rel(_np(dv), _np(jdv))})
+
+
+def test_mm_3xtf32_refuses_other_pass_counts():
+    with pytest.raises(ValueError, match="passes"):
+        tattn.mm_3xtf32(torch.ones(2, 2), torch.ones(2, 2), passes=2)
+
+
+def test_aligned16_copies_only_misaligned_operands():
+    """The forward and dK/dV wrappers hand the kernels 16-byte aligned
+    rows: the strided q/k/v views of a fused projection pass through,
+    a view off by one element or with an odd row stride is copied once."""
+    b, s, h, d = 2, 8, 3, 16
+    qkv = torch.randn(b, s, 3 * h * d)
+    k = qkv[..., h * d:2 * h * d].view(b, s, h, d)
+    assert tattn._aligned16(k) is k
+    for bad in (torch.randn(b, s, 3 * h * d + 1)[..., 1:1 + h * d],
+                torch.randn(b, s, h * d + 2)[..., :h * d],
+                torch.randn(b, s, d, h).transpose(2, 3)):
+        bad = bad.reshape(b, s, h, d) if bad.dim() == 3 else bad
+        fixed = tattn._aligned16(bad)
+        assert fixed is not bad and torch.equal(fixed, bad)
+        assert fixed.is_contiguous() and fixed.data_ptr() % 16 == 0
+        assert tattn._aligned16(fixed) is fixed
+
+
+def test_ptxas_report_parses_each_kernel_instance(tmp_path, monkeypatch):
+    """The build keeps ptxas's -v report beside each library; the smoke
+    reads registers and spills per (kernel, dtype, head_dim) from it."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+    log = tmp_path / "flash_fwd.ptxas.txt"
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvNS_6ParamsE' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvNS_6ParamsE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 214 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_"
+        "fwd_kernelI13__nv_bfloat16Li128EEEvNS_6ParamsE' for 'sm_90a'\n"
+        "    16 bytes stack frame, 20 bytes spill stores, 32 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n")
+    monkeypatch.setattr(_kernels, "_log_path", lambda name: str(log))
+    assert _kernels.ptxas_report("flash_fwd") == [
+        {"kernel": "flash_fwd", "dtype": "f32", "head_dim": 64,
+         "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "registers": 214},
+        {"kernel": "flash_fwd", "dtype": "bf16", "head_dim": 128,
+         "stack_bytes": 16, "spill_store_bytes": 20, "spill_load_bytes": 32,
+         "registers": 255}]

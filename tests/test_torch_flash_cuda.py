@@ -1,5 +1,6 @@
-"""The flash-attention backward kernels (B2 ``csrc/flash_bwd_dq.cu``, B3
-``csrc/flash_bwd_dkv.cu``) against their plain PyTorch version on the card.
+"""The flash-attention kernels (B1 ``csrc/flash_fwd.cu``, B2
+``csrc/flash_bwd_dq.cu``, B3 ``csrc/flash_bwd_dkv.cu``) against their plain
+PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with the card it
@@ -7,11 +8,15 @@ runs without the JAX test fixtures:
 
     python -m pytest tests/test_torch_flash_cuda.py --noconftest -q
 
-Tolerances are relative to each gradient's largest magnitude: the
-gradients are sums over up to 512 keys (or queries), so an absolute bound
-would say little. f32 1e-5: kernel and plain version both sum in f32, in a
-different order. bf16 2e-2: both round the result to bf16 (one ulp is
-2^-8 relative) from f32 sums of the same bf16 inputs.
+Tolerances of the backward are relative to each gradient's largest
+magnitude: the gradients are sums over up to 512 keys (or queries), so an
+absolute bound would say little. f32 1e-5: kernel and plain version both
+sum in f32, in a different order (B1 and B3 take their products in
+3xTF32, which keeps f32 accuracy). bf16 2e-2: both round the result to
+bf16 (one ulp is 2^-8 relative) from f32 sums of the same bf16 inputs. The
+forward's output is held absolutely (outputs are convex combinations of v
+rows, |o| <= 4 here) at the same 1e-5 / 2e-2, and lse2, f32 on both
+sides, at 1e-5.
 """
 
 import math
@@ -53,6 +58,50 @@ def _rel_err(a, b):
     b = b.float()
     return ((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30)
             ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k,causal,d", CASES)
+def test_fwd_kernel_matches_plain(dtype, s_q, s_k, causal, d):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = _views(2, s_q, s_k, 12 if d < 128 else 4, d, dtype, gen)
+    n = tattn.flash_fwd.launches
+    out, lse2 = tattn.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert tattn.flash_fwd.launches == n + 1
+    want, want_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == want.shape
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (lse2 - want_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_views_give_the_contiguous_result(dtype):
+    """B1 and B3 copy 16-byte rows: a view whose rows are not 16-byte
+    aligned is copied by the wrapper, and gives the same result as its
+    contiguous copy."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, s, h, d = 2, 128, 12, 64
+    buf = torch.randn(b, s, 3 * h * d + 1, device="cuda",
+                      generator=gen).to(dtype)
+    q, k, v = (buf[..., 1 + i * h * d:1 + (i + 1) * h * d].view(b, s, h, d)
+               for i in range(3))
+    g = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    assert q.data_ptr() % 16 != 0
+    runs = []
+    for args in ((q, k, v), tuple(t.contiguous() for t in (q, k, v))):
+        out, lse2 = tattn.flash_fwd(*args, causal=True, with_lse=True)
+        _, delta = tattn.flash_bwd_dq(*args, out, lse2, g, causal=True)
+        runs.append((out, lse2) + tattn.flash_bwd_dkv(
+            *args, g, lse2, delta, causal=True))
+    torch.cuda.synchronize()
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
