@@ -43,6 +43,16 @@
 // at 32 registers beside dk and dv (a pass of 64 took 40 more registers at
 // D = 64 and ran a few per cent slower on the H100).
 //
+// Accuracy: the tensor core's f32 accumulation truncates, so dk and dv,
+// fed 24 mma passes per query tile each, drift towards zero by up to an
+// ulp a pass; over 32 query tiles (S = 2048) that drift reached 3.1e-5
+// of the largest gradient on the H100. In f32 the accumulators are
+// therefore added into the outputs (stored the first time) and zeroed
+// after every second query tile that has a successor: no sum runs over
+// more than two tiles, as at S <= 128, where nothing is flushed. The
+// outputs belong to this CTA alone, so this stays deterministic. bf16
+// outputs round far above the drift.
+//
 // Shared memory per CTA: K, V and two stages of q and g (six 64-row tiles,
 // rows padded 16 bytes) and two stages of L and delta (1 KB): 105,472 B at
 // D = 64 and 203,776 B at D = 128 in f32 (2 and 1 CTAs per SM by shared
@@ -77,6 +87,27 @@ __device__ __forceinline__ void stage_q(T* Qs, T* Gs, float* LD,
   const bool ok = s < sq;
   const float* src = threadIdx.x < ROWS ? lse : delta;
   cp_async4(LD + threadIdx.x, src + (ok ? s : 0), ok ? 4 : 0);
+}
+
+// Add this thread's accumulated elements of rows row and row + 8 into out
+// (a store when !add), and zero the accumulators.
+template <int KS>
+__device__ __forceinline__ void flush(float (&acc)[KS][4], float* out,
+                                      long long xs, int row, int n_rows,
+                                      int t, bool add) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float* o = out + (row + 8 * i) * xs + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (row + 8 * i < n_rows)
+          o[8 * n + c] = add ? o[8 * n + c] + acc[n][2 * i + c]
+                             : acc[n][2 * i + c];
+        acc[n][2 * i + c] = 0.f;
+      }
+  }
 }
 
 // The explicit 1 lets ptxas take up to 255 registers (see flash_fwd.cu).
@@ -131,6 +162,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; r < 4; ++r) dk[n][r] = dv[n][r] = 0.f;
 
   const bool k_ragged = k0 + ROWS > p.Sk;
+  bool flushed = false;   // f32: the outputs hold partial sums
   for (int it = 0; it < n_qt; ++it) {
     const int q0 = q_begin + it * ROWS;
     if (it + 1 < n_qt) {   // the next query tile loads while this one runs
@@ -202,6 +234,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     __syncthreads();   // this stage is consumed before it is refilled
+    if constexpr (!EX) {
+      if ((it & 1) && it + 1 < n_qt) {   // every second query tile
+        flush(dk, dkp, p.xs, k0 + r0 + g, p.Sk, t, flushed);
+        flush(dv, dvp, p.xs, k0 + r0 + g, p.Sk, t, flushed);
+        flushed = true;
+      }
+    }
   }
 
   const float dk_scale = p.scale2 * p.out_scale;   // sm_scale
@@ -212,12 +251,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       T* dkr = dkp + kr * p.xs;
       T* dvr = dvp + kr * p.xs;
 #pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        dkr[8 * n + 2 * t] = from_f<T>(dk[n][2 * i] * dk_scale);
-        dkr[8 * n + 2 * t + 1] = from_f<T>(dk[n][2 * i + 1] * dk_scale);
-        dvr[8 * n + 2 * t] = from_f<T>(dv[n][2 * i]);
-        dvr[8 * n + 2 * t + 1] = from_f<T>(dv[n][2 * i + 1]);
-      }
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = 8 * n + 2 * t + c;
+          float a = dk[n][2 * i + c], e = dv[n][2 * i + c];
+          if (flushed) {   // f32 only
+            a += to_f(dkr[x]);
+            e += to_f(dvr[x]);
+          }
+          dkr[x] = from_f<T>(a * dk_scale);
+          dvr[x] = from_f<T>(e);
+        }
     }
   }
 }

@@ -42,6 +42,17 @@
 // current one is multiplied. Tiles are padded 16 bytes a row, which keeps
 // every fragment read conflict-free (mma_tf32.cuh).
 //
+// Accuracy: the tensor core's f32 accumulation truncates, so the output
+// accumulator, fed 24 mma passes per key tile, drifts towards zero by up
+// to an ulp a pass; over 32 key tiles (S = 2048) that drift reached
+// 2.0e-5 on outputs of magnitude ~0.2 on the H100. In f32 the accumulator
+// is therefore added into the output (stored the first time, rescaled to
+// the running max as the accumulator is) and zeroed after every second
+// key tile that has a successor: no sum runs over more than two tiles, as
+// at S <= 128, where nothing is flushed. The output rows belong to this
+// CTA alone, so this stays deterministic. bf16 outputs round far above
+// the drift.
+//
 // Shared memory per CTA: the Q tile and two stages of K and V, five 64-row
 // tiles: 87,040 B at D = 64 and 168,960 B at D = 128 in f32 (2 and 1 CTAs
 // per SM), 46,080 B and 87,040 B in bf16 (2 and 2, registers bounding the
@@ -119,6 +130,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
   FragA qf[QREG ? KS : 1];
+  bool flushed = false;   // f32: o holds a partial sum, relative to mf
+  float mf[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_kt; ++it) {
     const int k0 = it * ROWS;
@@ -211,6 +224,27 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(Params p) {
                         b_frag_perm<EX, T, D>(Vs, 8 * j, 8 * n, g, t));
     }
     __syncthreads();   // this stage is consumed before it is refilled
+    if constexpr (!EX) {
+      if ((it & 1) && it + 1 < n_kt) {   // every second key tile
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = q0 + r0 + g + 8 * i;
+          const float c = exp2f(mf[i] - m[i]);
+          float* orow = op + row * p.os + 2 * t;
+#pragma unroll
+          for (int n = 0; n < KS; ++n)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              float& x = o[n][2 * i + cc];
+              if (row < p.Sq)
+                orow[8 * n + cc] = flushed ? c * orow[8 * n + cc] + x : x;
+              x = 0.f;
+            }
+          mf[i] = m[i];
+        }
+        flushed = true;
+      }
+    }
   }
 
 #pragma unroll
@@ -221,12 +255,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(Params p) {
     const int row = q0 + r0 + g + 8 * i;
     if (row < p.Sq) {
       const float inv = 1.f / l[i];
-      T* orow = op + row * p.os;
+      const float c = exp2f(mf[i] - m[i]);
+      T* orow = op + row * p.os + 2 * t;
 #pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        orow[8 * n + 2 * t] = from_f<T>(o[n][2 * i] * inv);
-        orow[8 * n + 2 * t + 1] = from_f<T>(o[n][2 * i + 1] * inv);
-      }
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          float x = o[n][2 * i + cc];
+          if (flushed) x += c * to_f(orow[8 * n + cc]);   // f32 only
+          orow[8 * n + cc] = from_f<T>(x * inv);
+        }
       if (p.lse != nullptr && t == 0)
         p.lse[static_cast<long long>(bh) * p.Sq + row] = m[i] + log2f(l[i]);
     }

@@ -1,7 +1,7 @@
 // Tensor-core pieces shared by the flash forward (flash_fwd.cu) and the
-// dK/dV pass (flash_bwd_dkv.cu): f32-accurate products on the TF32 tensor
-// cores (3xTF32), 16-byte cp.async tile copies, and the m16n8k8 fragment
-// layouts.
+// two backward passes (flash_bwd_dq.cu, flash_bwd_dkv.cu): f32-accurate
+// products on the TF32 tensor cores (3xTF32), 16-byte cp.async tile copies,
+// and the m16n8k8 fragment layouts.
 //
 // 3xTF32. mma.sync.m16n8k8 with tf32 operands and f32 accumulators: each
 // f32 operand x is split once into hi = tf32(x) and lo = tf32(x - hi)
@@ -42,9 +42,9 @@
 
 namespace zoo_mma {
 
+using zoo_flash::ROWS;         // rows of a staged tile
 using zoo_flash::to_f;
 
-constexpr int ROWS = 64;       // rows of a staged tile
 constexpr int THREADS = 128;   // 4 warps, 16 rows of the CTA's tile each
 
 // Elements of one padded row, and of one padded 64-row tile.

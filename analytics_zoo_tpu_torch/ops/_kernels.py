@@ -57,6 +57,7 @@ _SIGNATURES = {
 }
 # libraries that answer occupancy queries: (dtype, D, int[2] out)
 _OCCUPANCY = {"flash_fwd": "zoo_flash_fwd_occupancy",
+              "flash_bwd_dq": "zoo_flash_bwd_dq_occupancy",
               "flash_bwd_dkv": "zoo_flash_bwd_dkv_occupancy"}
 
 _lock = threading.Lock()

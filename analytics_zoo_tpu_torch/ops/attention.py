@@ -16,10 +16,11 @@ kernel's arithmetic:
 * ``flash_bwd_dkv`` -> ``csrc/flash_bwd_dkv.cu`` (``_flash_bwd_dkv_kernel``),
   plain version ``flash_bwd_dkv_plain``. ``flash_bwd_plain`` runs both.
 
-There is no fallback from the card to a plain version. B1 and B3 run their
-products on the TF32 tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``);
-``tf32_split`` and ``mm_3xtf32`` emulate that arithmetic on the CPU, for
-the tests, through the plain versions' ``mm`` argument.
+There is no fallback from the card to a plain version. The three kernels
+run their products on the TF32 tensor cores in 3xTF32
+(``csrc/mma_tf32.cuh``); ``tf32_split`` and ``mm_3xtf32`` emulate that
+arithmetic on the CPU, for the tests, through the plain versions' ``mm``
+argument.
 """
 
 from __future__ import annotations
@@ -133,7 +134,7 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split f32 ``x`` into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, as
-    B1 and B3 split every f32 operand before the tensor cores see it."""
+    the kernels split every f32 operand before the tensor cores see it."""
     x = x.float()
     hi = _tf32_rna(x)
     return hi, _tf32_rna(x - hi)
@@ -141,7 +142,7 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, *,
               passes: int = 3) -> torch.Tensor:
-    """``a @ b`` as B1 and B3 take it on the TF32 tensor cores:
+    """``a @ b`` as the kernels take it on the TF32 tensor cores:
     ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (``passes=3``), or ``a_hi b_hi``
     alone (``passes=1``, plain TF32). A product of two tf32 values is exact
     in f32, and the sums are f32, as in the kernels' accumulators."""
@@ -229,7 +230,7 @@ def _check_kernel_inputs(q, k, v, causal, what="flash_fwd"):
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """B1 and B3 copy rows into shared memory 16 bytes at a time, so each
+    """The kernels copy rows into shared memory 16 bytes at a time, so each
     row of an operand must start on a 16-byte boundary: a unit head_dim
     stride, a 16-byte aligned base and batch, seq and head strides that are
     multiples of 16 bytes. The strided q/k/v views of a fused projection
@@ -338,10 +339,12 @@ def _to_bshd(t, dtype):
 
 
 def flash_bwd_dq_plain(q, k, v, o, lse2, g, *, causal: bool = False,
-                       sm_scale: Optional[float] = None):
+                       sm_scale: Optional[float] = None,
+                       mm: Callable = torch.matmul):
     """B2's arithmetic in plain PyTorch, in f32: delta = rowsum(g * o);
     walk the key tiles, dq += dS k; scale by sm_scale at the end. Returns
-    (dq in the input dtype, delta as (B*H, Sq, 1) f32)."""
+    (dq in the input dtype, delta as (B*H, Sq, 1) f32). ``mm`` takes the
+    three products (``mm_3xtf32`` emulates the kernel's)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, s_q, h, _ = q.shape
@@ -354,8 +357,9 @@ def flash_bwd_dq_plain(q, k, v, o, lse2, g, *, causal: bool = False,
     for k0 in range(0, s_k, KERNEL_BLOCK_K):
         k1 = k0 + KERNEL_BLOCK_K
         k_t, v_t = kf[:, :, k0:k1], vf[:, :, k0:k1]
-        _, ds = _bwd_tile_plain(q2, k_t, v_t, gf, L, d4, causal, q_pos, k0)
-        dq = dq + ds @ k_t
+        _, ds = _bwd_tile_plain(q2, k_t, v_t, gf, L, d4, causal, q_pos, k0,
+                                mm)
+        dq = dq + mm(ds, k_t)
     return _to_bshd(dq * sm_scale, q.dtype), delta
 
 
@@ -421,13 +425,6 @@ def _strides(*ts):
     return out
 
 
-def _unit_last(t):
-    """The kernels read rows with a unit head_dim stride. Autograd's g can
-    be an expanded or otherwise strided tensor: only then is one
-    contiguous copy made."""
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def flash_bwd_dq(q, k, v, o, lse2, g, *, causal: bool = False,
                  sm_scale: Optional[float] = None):
     """dQ pass of the flash backward over (B, S, H, D).
@@ -447,7 +444,7 @@ def flash_bwd_dq(q, k, v, o, lse2, g, *, causal: bool = False,
     if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
         raise ValueError("flash_bwd_dq: o must match q in shape, dtype "
                          "and device")
-    q, k, v, o, g = (_unit_last(t) for t in (q, k, v, o, g))
+    q, k, v, o, g = (_aligned16(t) for t in (q, k, v, o, g))
     b, s_q, h, d = q.shape
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, s_q, 1), dtype=torch.float32,

@@ -11,7 +11,7 @@ before its matmuls while the port keeps them in f32, so the two may differ
 by a few bf16 ulps of outputs of magnitude up to ~2.
 
 The 3xTF32 tests run the plain versions with every product emulated as
-kernels B1 and B3 take it on the tensor cores (``mm_3xtf32``) and hold them
+kernels B1-B3 take it on the tensor cores (``mm_3xtf32``) and hold them
 against the JAX package at 1e-5 relative to each result's largest value,
 the kernels' f32 parity on the card; with one TF32 pass the same runs miss
 that tolerance (measured ~4e-4 against ~5e-7 with three), so the
@@ -252,13 +252,39 @@ def test_3xtf32_dkv_matches_jax_vjp(s_q, s_k, causal, passes):
                          "dv": _rel(_np(dv), _np(jdv))})
 
 
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("s_q,s_k,causal", CASES)
+def test_3xtf32_dq_matches_jax_vjp(s_q, s_k, causal, passes):
+    """The forward and B2's dQ recurrence with every product in 3xTF32
+    against jax.grad through the JAX flash_attention (its Pallas backward
+    in interpret mode): dq, and the delta = rowsum(g * o) returned beside
+    it against the same sum over the JAX forward's output."""
+    q, k, v = _qkv(s_q=s_q, s_k=s_k)
+    g = np.random.RandomState(1).randn(*q.shape).astype(np.float32)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g))
+
+    def flash(q, k, v):
+        return jattn.flash_attention(q, k, v, causal=causal, block_q=8,
+                                     block_k=8)
+
+    jdq = jax.grad(lambda q: jnp.sum(flash(q, jk, jv) * jg))(jq)
+    jdelta = jnp.sum(jg * flash(jq, jk, jv), -1).transpose(0, 2, 1)
+    mm = functools.partial(tattn.mm_3xtf32, passes=passes)
+    out, lse = tattn.flash_attention_plain(tq, tk, tv, causal=causal, mm=mm)
+    dq, delta = tattn.flash_bwd_dq_plain(tq, tk, tv, out, lse, tg,
+                                         causal=causal, mm=mm)
+    _check_tf32(passes, {"dq": _rel(_np(dq), _np(jdq)),
+                         "delta": _rel(_np(delta).reshape(-1),
+                                       _np(jdelta).reshape(-1))})
+
+
 def test_mm_3xtf32_refuses_other_pass_counts():
     with pytest.raises(ValueError, match="passes"):
         tattn.mm_3xtf32(torch.ones(2, 2), torch.ones(2, 2), passes=2)
 
 
 def test_aligned16_copies_only_misaligned_operands():
-    """The forward and dK/dV wrappers hand the kernels 16-byte aligned
+    """The kernel wrappers hand the kernels 16-byte aligned
     rows: the strided q/k/v views of a fused projection pass through,
     a view off by one element or with an odd row stride is copied once."""
     b, s, h, d = 2, 8, 3, 16

@@ -9,9 +9,9 @@ runs without the JAX test fixtures:
     python -m pytest tests/test_torch_flash_cuda.py --noconftest -q
 
 Tolerances of the backward are relative to each gradient's largest
-magnitude: the gradients are sums over up to 512 keys (or queries), so an
+magnitude: the gradients are sums over up to 2048 keys (or queries), so an
 absolute bound would say little. f32 1e-5: kernel and plain version both
-sum in f32, in a different order (B1 and B3 take their products in
+sum in f32, in a different order (the kernels take their products in
 3xTF32, which keeps f32 accuracy). bf16 2e-2: both round the result to
 bf16 (one ulp is 2^-8 relative) from f32 sums of the same bf16 inputs. The
 forward's output is held absolutely (outputs are convex combinations of v
@@ -35,6 +35,8 @@ CASES = [  # (s_q, s_k, causal, head_dim)
     (72, 72, True, 32),
     (24, 72, True, 16),
     (128, 128, True, 128),
+    (2048, 2048, False, 64),    # long sequences: 32 key (or query) tiles
+    (2048, 2048, True, 64),
 ]
 
 
@@ -81,7 +83,7 @@ def test_fwd_kernel_matches_plain(dtype, s_q, s_k, causal, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_misaligned_views_give_the_contiguous_result(dtype):
-    """B1 and B3 copy 16-byte rows: a view whose rows are not 16-byte
+    """The kernels copy 16-byte rows: a view whose rows are not 16-byte
     aligned is copied by the wrapper, and gives the same result as its
     contiguous copy."""
     _card()

@@ -7,6 +7,7 @@ summation-order and LayerNorm-variance differences of the two frameworks
 through two BERT layers.
 """
 
+import glob
 import json
 import os
 import subprocess
@@ -101,32 +102,28 @@ def test_cluster_serving_matches_jax_inference_model(orca_context):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports without JAX,
+    flax or the JAX package."""
     code = (
-        "import sys, json\n"
-        "import analytics_zoo_tpu_torch\n"
-        "import analytics_zoo_tpu_torch.serving\n"
-        "import analytics_zoo_tpu_torch.ops.attention\n"
-        "import analytics_zoo_tpu_torch.ops.embedding\n"
-        "import analytics_zoo_tpu_torch.pipeline.inference\n"
-        "import analytics_zoo_tpu_torch.tfpark.text.estimator\n"
-        "import analytics_zoo_tpu_torch.interop\n"
-        "import analytics_zoo_tpu_torch.tfpark.text\n"
-        "import analytics_zoo_tpu_torch.orca.learn\n"
-        "import analytics_zoo_tpu_torch.orca.learn.engine\n"
-        "import analytics_zoo_tpu_torch.orca.learn.estimator\n"
-        "import analytics_zoo_tpu_torch.orca.learn.losses\n"
-        "import analytics_zoo_tpu_torch.orca.learn.metrics\n"
-        "import analytics_zoo_tpu_torch.orca.learn.optimizers\n"
-        "import analytics_zoo_tpu_torch.orca.learn.trigger\n"
-        "import analytics_zoo_tpu_torch.orca.learn.utils\n"
+        "import sys, json, pkgutil, importlib\n"
+        "import analytics_zoo_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'analytics_zoo_tpu')]\n"
-        "print(json.dumps(bad))\n")
+        "print(json.dumps([len(names), bad]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    n_modules, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert bad == []
+    # every .py file of the package but its top __init__ was imported
+    files = glob.glob(os.path.join(REPO, "analytics_zoo_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    assert n_modules == len(files) - 1
 
 
 def test_no_gpu_and_no_cpu_request_raises(monkeypatch):
