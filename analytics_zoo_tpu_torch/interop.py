@@ -14,11 +14,29 @@ names, so the mapping is by name, leaf by leaf:
 Every conversion is exact (a transpose or a copy), so a round trip
 flax -> torch -> flax gives back the same bytes. A missing or an extra key,
 or a shape that differs from the module's, raises.
+
+Optimizer state crosses too, for the ported optimizers, so a run restored
+from the other package's checkpoint continues as it would have (bit for bit
+in exact arithmetic):
+
+* optax ``adam``/``adamw`` under ``inject_hyperparams``: ``mu`` ->
+  ``exp_avg``, ``nu`` -> ``exp_avg_sq``, ``count`` -> ``step``, and the
+  injected ``learning_rate`` -> each param group's ``lr``;
+* optax ``sgd`` with momentum: the ``TraceState`` trace -> each
+  parameter's ``momentum_buffer``.
+
+Moments follow their parameter's mapping (a Dense kernel's moments are
+transposed). The optax side may be optax's own namedtuples or the
+checkpoint reader's stand-ins for them (``ckpt.format.stand_in``): both are
+matched by class name and field, so this module imports neither JAX nor
+optax. :func:`state_from_jax` and :func:`state_to_jax` convert whole
+engine states, as a checkpoint holds them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import copy
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,3 +118,133 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]
                          f"shape mismatch {wrong}")
     module.load_state_dict(sd, strict=True)
     return module
+
+
+# --- optimizer state ---------------------------------------------------------
+_INJECT = ("InjectStatefulHyperparamsState",)
+
+
+def _find(tree, names) -> Optional[Any]:
+    """The first namedtuple in ``tree`` whose class name is in ``names``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        if type(tree).__name__ in names:
+            return tree
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            found = _find(v, names)
+            if found is not None:
+                return found
+    return None
+
+
+def _by_name(flax_tree, param_names: Sequence[str]) -> List[torch.Tensor]:
+    sd = flax_to_state_dict(flax_tree)
+    return [sd[n] for n in param_names]
+
+
+def optax_state_to_torch(opt_state, optimizer: torch.optim.Optimizer,
+                         param_names: Sequence[str]) -> Dict[str, Any]:
+    """An optax state of Adam, AdamW or SGD -> a ``state_dict`` for
+    ``optimizer`` (built over the parameters ``param_names`` names, in
+    order). A state before the first step gives an empty ``state``, as
+    torch's own optimizers start."""
+    groups = copy.deepcopy(optimizer.state_dict()["param_groups"])
+    inject = _find(opt_state, _INJECT)
+    if inject is not None:
+        lr = float(np.asarray(inject.hyperparams["learning_rate"]))
+        for g in groups:
+            g["lr"] = lr
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    adam = _find(opt_state, ("ScaleByAdamState",))
+    trace = _find(opt_state, ("TraceState",))
+    if adam is not None:
+        step = int(np.asarray(adam.count))
+        if step > 0:
+            mus = _by_name(adam.mu, param_names)
+            nus = _by_name(adam.nu, param_names)
+            for i, (mu, nu) in enumerate(zip(mus, nus)):
+                state[i] = {"step": torch.tensor(float(step)),
+                            "exp_avg": mu, "exp_avg_sq": nu}
+    elif trace is not None:
+        steps = int(np.asarray(inject.count)) if inject is not None else 1
+        if steps > 0:
+            for i, buf in enumerate(_by_name(trace.trace, param_names)):
+                state[i] = {"momentum_buffer": buf}
+    return {"state": state, "param_groups": groups}
+
+
+def _to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
+    return state_dict_to_flax({k: torch.as_tensor(np.asarray(v))
+                               for k, v in named.items()})
+
+
+def torch_state_to_optax(torch_state: Mapping[str, Any],
+                         param_names: Sequence[str], template, step: int):
+    """A torch Adam/AdamW/SGD ``state_dict`` -> the optax state of
+    ``template`` (the JAX optimizer's state, e.g. ``tx.init(params)``),
+    rebuilt with the template's own classes. ``step`` is the engine's
+    step count (the injected state's ``count``)."""
+    st = torch_state["state"]
+    lr = float(torch_state["param_groups"][0]["lr"])
+
+    def moments(key, like):
+        if not st:          # before the first step: the template's zeros
+            return like
+        return _to_flax({n: st[i][key] for i, n in enumerate(param_names)})
+
+    def fill(node):
+        name = type(node).__name__
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            if name == "ScaleByAdamState":
+                count = int(np.asarray(st[0]["step"])) if st else 0
+                return node._replace(
+                    count=np.asarray(count, np.asarray(node.count).dtype),
+                    mu=moments("exp_avg", node.mu),
+                    nu=moments("exp_avg_sq", node.nu))
+            if name == "TraceState":
+                return node._replace(trace=moments("momentum_buffer",
+                                                   node.trace))
+            if name in _INJECT:
+                hp = dict(node.hyperparams)
+                hp["learning_rate"] = np.asarray(
+                    lr, np.asarray(hp["learning_rate"]).dtype)
+                return node._replace(
+                    count=np.asarray(step, np.asarray(node.count).dtype),
+                    hyperparams=hp, inner_state=fill(node.inner_state))
+            return node
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v) for v in node)
+        return node
+
+    return fill(template)
+
+
+def state_from_jax(jax_state: Mapping[str, Any], module: nn.Module,
+                   optimizer: Optional[torch.optim.Optimizer]
+                   ) -> Dict[str, Any]:
+    """A JAX engine state (``{"params", "extra_vars", "opt_state",
+    "step"}``, as its checkpoints hold it) -> the port engine's state for
+    ``module`` and ``optimizer`` (no optimizer: the moments are
+    dropped)."""
+    names = [n for n, _ in module.named_parameters()]
+    out = {"params": flax_to_state_dict(jax_state["params"]),
+           "opt_state": None, "step": int(jax_state["step"])}
+    if optimizer is not None and jax_state.get("opt_state") is not None:
+        out["opt_state"] = optax_state_to_torch(jax_state["opt_state"],
+                                                optimizer, names)
+    return out
+
+
+def state_to_jax(port_state: Mapping[str, Any], opt_template
+                 ) -> Dict[str, Any]:
+    """The port engine's state (with its ``param_names``, as its
+    checkpoints hold it) -> a JAX engine state whose optimizer state has
+    the form of ``opt_template``."""
+    names = list(port_state["param_names"])
+    step = int(port_state["step"])
+    opt = port_state.get("opt_state")
+    return {"params": _to_flax(port_state["params"]),
+            "extra_vars": {},
+            "opt_state": (None if opt is None else torch_state_to_optax(
+                opt, names, opt_template, step)),
+            "step": step, "tp_specs": None}

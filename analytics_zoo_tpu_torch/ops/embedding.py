@@ -14,16 +14,23 @@ The backward follows ``grad_mode`` as in the JAX package:
   onehot(ids)^T @ g``: the cotangents are rounded to bf16, the one-hot is
   exact, the products are summed in f32 and the result is cast to the
   table's dtype, so table gradients agree with ``scatter`` to bf16
-  precision. As in JAX, the one-hot is built from the raw ids: a negative
-  or out-of-range id matches no row. It materialises (ids, rows) f32, so
-  it is meant for the small tables ``auto`` picks it for.
+  precision. As in JAX, a negative or out-of-range id matches no row. The
+  port computes the same function without the one-hot: each bf16-rounded
+  cotangent row is added in f32 (``index_add_`` into zeros) to the row its
+  id names. The one-hot matmul would build an ``(ids, rows)`` f32 matrix
+  (10 GB for NCF's two tables at batch 262,144) and spend ``2 * ids *
+  rows * cols`` flops on it; the sum reads the cotangents once.
+  ``onehot_matmul_backward`` keeps the matmul as the plain version the
+  tests hold the sum against.
 * ``"auto"`` — ``onehot`` for 2-D tables with rows <= ``ONEHOT_ROWS_MAX``
   and rows*cols <= ``ONEHOT_ELEMENTS_MAX`` (BERT's segment table, small
   vocabularies), else ``scatter`` (BERT-Base's 30522 x 768 token table).
   ``ZOO_EMBED_GRAD_MODE`` overrides ``auto``.
 
-The one-hot backward is plain torch ops (one matmul), as it was XLA ops and
-not a Pallas kernel in the JAX package.
+The one-hot backward is plain torch ops, as it was XLA ops and not a Pallas
+kernel in the JAX package. ``index_add_`` sums with f32 atomics on the
+card, so two runs may differ in the last bits of a row that many ids share;
+a sort and segment sum would be deterministic at the price of the sort.
 """
 
 from __future__ import annotations
@@ -65,11 +72,36 @@ class _OneHotLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        flat_ids = ids.reshape(-1).long()
-        flat_g = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
-        rows = torch.arange(ctx.rows, device=ids.device)
-        onehot = (flat_ids[:, None] == rows[None, :]).float()
-        return (onehot.t() @ flat_g).to(ctx.dtype), None
+        return onehot_sum_backward(ids, g, ctx.rows, ctx.dtype), None
+
+
+def _flat_bf16_cotangents(ids, g):
+    flat_ids = ids.reshape(-1).long()
+    flat_g = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
+    return flat_ids, flat_g
+
+
+def onehot_sum_backward(ids: torch.Tensor, g: torch.Tensor, rows: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The one-hot backward's function without the one-hot: row ``r`` is
+    the f32 sum of the bf16-rounded cotangents whose id is ``r``; an id
+    outside ``[0, rows)`` adds nothing. Cast to the table's ``dtype``."""
+    flat_ids, flat_g = _flat_bf16_cotangents(ids, g)
+    # an id outside [0, rows) adds into a spare last row, dropped below
+    idx = torch.where((flat_ids >= 0) & (flat_ids < rows), flat_ids, rows)
+    out = torch.zeros(rows + 1, flat_g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, idx, flat_g)[:rows].to(dtype)
+
+
+def onehot_matmul_backward(ids: torch.Tensor, g: torch.Tensor, rows: int,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The plain version: ``onehot(ids)^T @ g`` with the ``(ids, rows)``
+    one-hot built in f32, as the JAX package computes it."""
+    flat_ids, flat_g = _flat_bf16_cotangents(ids, g)
+    rows_ = torch.arange(rows, device=ids.device)
+    onehot = (flat_ids[:, None] == rows_[None, :]).float()
+    return (onehot.t() @ flat_g).to(dtype)
 
 
 def _use_onehot(table: torch.Tensor, grad_mode: str) -> bool:

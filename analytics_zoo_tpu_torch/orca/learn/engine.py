@@ -22,14 +22,21 @@ different bits). Parameters are initialised when the module is
 constructed; ``build`` moves nothing and re-initialises nothing, so weights
 a caller loaded (for example through ``interop``) are what trains.
 
+A ``prologue`` (``orca/learn/prologue.BatchPrologue``) runs at the start
+of every train, eval and predict step, on the device. ``train_batch``
+records each step's host dispatch time as the ``step`` stage of
+``pipeline_stats`` when the estimator set one.
+
 Not ported: scan fusion (``fuse`` is always 1), and the comms, sharding,
-fsdp, compile-cache and prologue planes.
+fsdp and compile-cache planes.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,13 +60,15 @@ class TrainEngine:
     def __init__(self, module: nn.Module,
                  optimizer: Callable[..., torch.optim.Optimizer],
                  loss_fn: Optional[Callable], metrics: Dict[str, Metric],
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, seed: int = 0, prologue=None):
         self.module = module
         self.make_optimizer = optimizer
         self.loss_fn = loss_fn
         self.metrics = metrics
         self.device = device
         self.seed = seed
+        self.prologue = prologue
+        self.pipeline_stats = None      # the estimator's PipelineStats
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self._gen = torch.Generator(device=device)
@@ -110,6 +119,12 @@ class TrainEngine:
         self.step = 0
 
     # --- model application --------------------------------------------------
+    def _pre(self, x, y):
+        """The prologue (a no-op without one)."""
+        if self.prologue is None:
+            return x, y
+        return self.prologue(x, y)
+
     def _apply(self, x, train: bool):
         self.module.train(train)
         return self.module(*x)
@@ -130,6 +145,7 @@ class TrainEngine:
         self._gen.manual_seed((self.seed * _SEED_MIX + self.step)
                               & 0x7FFFFFFFFFFFFFFF)
         self.opt.zero_grad(set_to_none=True)
+        x, y = self._pre(x, y)
         preds = self._apply(x, True)
         loss = self._compute_loss(y, preds, w)
         loss.backward()
@@ -141,6 +157,7 @@ class TrainEngine:
 
     def _eval_step(self, metric_states, x, y, w):
         with torch.no_grad():
+            x, y = self._pre(x, y)
             preds = self._apply(x, False)
             loss = (self._compute_loss(y, preds, w)
                     if (y is not None or self.loss_fn is None)
@@ -157,15 +174,20 @@ class TrainEngine:
 
     def _predict_step(self, x):
         with torch.no_grad():
+            if self.prologue is not None:
+                x = self.prologue.apply_x(x)
             return self._apply(x, False)
 
     # --- public API ---------------------------------------------------------
     def train_batch(self, batch: Batch) -> torch.Tensor:
         """One optimizer step on a host batch; returns the loss as a device
         scalar (read it after the epoch, so the host keeps issuing)."""
+        t0 = time.perf_counter()
         b = batch.to(self.device)
         loss = self._train_step(b.x, b.y, b.w)
         self.step += 1
+        if self.pipeline_stats is not None:
+            self.pipeline_stats.add("step", time.perf_counter() - t0)
         return loss
 
     def init_metric_states(self):
@@ -190,8 +212,8 @@ class TrainEngine:
 
     # --- state access -------------------------------------------------------
     def get_state(self) -> Dict[str, Any]:
-        """Module state (parameters and buffers), optimizer state and step,
-        as CPU tensors."""
+        """Module state (parameters and buffers), optimizer state, step and
+        the parameters' names in the optimizer's order, as CPU tensors."""
         def cpu(obj):
             if isinstance(obj, torch.Tensor):
                 return obj.detach().cpu().clone()
@@ -204,11 +226,26 @@ class TrainEngine:
         return {"params": cpu(self.module.state_dict()),
                 "opt_state": (cpu(self.opt.state_dict())
                               if self.opt is not None else None),
-                "step": self.step}
+                "step": self.step,
+                "param_names": [n for n, _ in
+                                self.module.named_parameters()]}
 
     def set_state(self, state: Dict[str, Any]):
+        """Adopt a state of :meth:`get_state`'s form; numpy leaves (as a
+        checkpoint reads them back) become tensors first."""
+        state = _as_tensors(state)
         self.module.load_state_dict(state["params"], strict=True)
         if state.get("opt_state") is not None:
             self.build()
             self.opt.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
+
+
+def _as_tensors(obj):
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(np.array(obj))
+    if isinstance(obj, dict):
+        return {k: _as_tensors(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_as_tensors(v) for v in obj]
+    return obj

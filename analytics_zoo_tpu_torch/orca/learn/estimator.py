@@ -9,11 +9,26 @@ dicts follow the JAX estimator: each epoch of ``fit`` returns ``{"epoch",
 "train_loss", "num_samples", "time_s"}``, with ``val_*`` keys when
 ``validation_data`` is given.
 
-Every step runs on its own (``fuse`` is always 1). Not ported yet: the
-checkpoint plane (``model_dir``, ``checkpoint_trigger``,
-``save_checkpoint``), retry from checkpoint, preemption, tensorboard and
-XShards/pandas inputs; ``model_dir`` and ``checkpoint_trigger`` raise
-instead of being ignored.
+Planes, as in the JAX estimator:
+
+* **checkpoint** (``ckpt/``): ``model_dir`` with a ``checkpoint_trigger``
+  saves through a ``CheckpointPlane`` (async, atomic, in the JAX package's
+  on-disk format); ``save_checkpoint``/``load_checkpoint``/
+  ``latest_checkpoint``/``flush_checkpoints``; a failing epoch is retried
+  from the latest committed checkpoint up to ``max_failure_retries``
+  times. ``load_checkpoint`` also takes a directory the JAX package wrote,
+  converted through ``interop``. Config keys ``ckpt_async``,
+  ``ckpt_keep_last_k``, ``ckpt_keep_best_k``, ``ckpt_metric_mode``,
+  ``ckpt_passphrase``, ``ckpt_max_inflight`` and ``ckpt_fsync`` tune it.
+* **host to device** (``native/``): batches come through the infeed pump
+  (config ``infeed_depth``, ``infeed_workers``); ``data_pipeline_stats()``
+  gives the stage counters, with the checkpoint plane's under ``"ckpt"``.
+* **prologue**: ``prologue=`` (or config ``prologue``) runs a
+  ``BatchPrologue`` at the start of every step.
+
+Every step runs on its own (``fuse`` is always 1). Not ported yet:
+preemption handling, tensorboard, ``profile=<trace dir>`` and XShards or
+pandas inputs.
 """
 
 from __future__ import annotations
@@ -27,12 +42,13 @@ import numpy as np
 import torch
 
 from ...common.context import resolve_device
+from ...native.infeed import PipelineStats
 from . import utils as learn_utils
 from .engine import TrainEngine
 from .losses import convert_loss
 from .metrics import convert_metrics_list
 from .optimizers.optimizers_impl import convert_optimizer
-from .trigger import TrainerState
+from .trigger import TrainerState, Trigger
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -74,20 +90,109 @@ class TPUEstimator:
     def __init__(self, module: torch.nn.Module, loss=None, optimizer="adam",
                  metrics=None, model_dir: Optional[str] = None,
                  config: Optional[dict] = None, seed: int = 0,
-                 device=None):
-        if model_dir is not None:
-            raise NotImplementedError("model_dir (the checkpoint plane) is "
-                                      "not ported yet")
+                 device=None, prologue=None):
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.config = config or {}
+        self.model_dir = model_dir
         self.loss_fn = convert_loss(loss) if loss is not None else None
         self.metrics = convert_metrics_list(metrics)
+        if prologue is None:
+            prologue = self.config.get("prologue")
         self.engine = TrainEngine(self.module, convert_optimizer(optimizer),
                                   self.loss_fn, self.metrics, self.device,
-                                  seed=seed)
+                                  seed=seed, prologue=prologue)
+        # one stats object spans the iterator's assembly, the pump's
+        # transfers and the engine's steps
+        self._pipeline_stats = PipelineStats()
+        self.engine.pipeline_stats = self._pipeline_stats
         self._trainer_state = TrainerState()
         self.train_stats: List[Dict[str, float]] = []
+        self._ckpt_plane = None
+
+    @staticmethod
+    def latest_checkpoint(model_dir: str) -> Optional[str]:
+        path, _ = learn_utils.find_latest_checkpoint(model_dir)
+        return path
+
+    # --- checkpoint plane ---------------------------------------------------
+    def _ckpt(self, model_dir: str):
+        """The CheckpointPlane for ``model_dir`` (one per estimator; rebound
+        if a caller switches directories)."""
+        from ...ckpt import CheckpointPlane
+        if self._ckpt_plane is None or self._ckpt_plane.root != model_dir:
+            if self._ckpt_plane is not None:
+                self._ckpt_plane.close()
+            cfg = self.config
+            self._ckpt_plane = CheckpointPlane(
+                model_dir,
+                keep_last_k=cfg.get("ckpt_keep_last_k"),
+                keep_best_k=cfg.get("ckpt_keep_best_k"),
+                metric_mode=cfg.get("ckpt_metric_mode", "min"),
+                passphrase=cfg.get("ckpt_passphrase"),
+                async_save=bool(cfg.get("ckpt_async", True)),
+                max_inflight=int(cfg.get("ckpt_max_inflight", 2)),
+                fsync=bool(cfg.get("ckpt_fsync", True)))
+        return self._ckpt_plane
+
+    def flush_checkpoints(self, timeout: Optional[float] = None) -> bool:
+        """Drain pending async checkpoint writes (no-op without a plane)."""
+        if self._ckpt_plane is None:
+            return True
+        return self._ckpt_plane.flush(timeout)
+
+    def save_checkpoint(self, model_dir: str, blocking: bool = False,
+                        meta: Optional[Dict] = None) -> str:
+        """Checkpoint through the plane: per-leaf content-addressed blobs
+        and a manifest, committed atomically; by default written behind
+        training on the plane's writer thread."""
+        plane = self._ckpt(model_dir)
+        self.engine.build()
+        path = plane.save(self.engine.get_state(), self.engine.step,
+                          score=self._trainer_state.score, meta=meta,
+                          blocking=blocking)
+        logger.info("checkpoint %s: %s",
+                    "saved" if blocking else "queued", path)
+        return path
+
+    def load_checkpoint(self, model_dir: str,
+                        step: Optional[int] = None) -> str:
+        """Restore the newest committed checkpoint (or exactly ``step``),
+        skipping uncommitted or corrupt ones; returns the path restored. A
+        checkpoint the JAX package wrote is converted through ``interop``
+        (parameters, and the optimizer state of Adam, AdamW or SGD)."""
+        plane = self._ckpt(model_dir)
+        try:
+            path, state = plane.restore(step=step)
+        except FileNotFoundError:
+            raise FileNotFoundError(f"no checkpoint under {model_dir}")
+        self.engine.build()
+        if "extra_vars" in state:           # written by the JAX package
+            from ... import interop
+            state = interop.state_from_jax(state, self.module,
+                                           self.engine.opt)
+        self.engine.set_state(state)
+        self._trainer_state.iteration = self.engine.step
+        return path
+
+    def shutdown(self):
+        if self._ckpt_plane is not None:
+            self._ckpt_plane.flush()
+            self._ckpt_plane.close()
+            self._ckpt_plane = None
+
+    # --- pipeline observability ---------------------------------------------
+    def data_pipeline_stats(self, reset: bool = False) -> Dict[str, Any]:
+        """Cumulative input-pipeline stage counters (``assemble_s``,
+        ``h2d_s`` with ``h2d_bytes``/``h2d_MBps``, ``step_s``, ``stall_s``,
+        ``transfer_limited``, depth and lanes), with the checkpoint plane's
+        counters under ``"ckpt"`` once it exists."""
+        snap = self._pipeline_stats.snapshot()
+        if self._ckpt_plane is not None:
+            snap["ckpt"] = self._ckpt_plane.stats.snapshot()
+        if reset:
+            self._pipeline_stats.reset()
+        return snap
 
     # --- gradient clipping --------------------------------------------------
     def set_constant_gradient_clipping(self, min_value: float,
@@ -105,9 +210,17 @@ class TPUEstimator:
         return self
 
     # --- fit ----------------------------------------------------------------
+    def _iterator(self, data, batch_size, feature_cols, label_cols,
+                  shuffle) -> learn_utils.BatchIterator:
+        return learn_utils.data_to_iterator(
+            data, batch_size, feature_cols, label_cols, shuffle=shuffle,
+            config=self.config, device=self.device,
+            stats=self._pipeline_stats)
+
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
             feature_cols=None, label_cols=None, validation_data=None,
-            session_config=None, checkpoint_trigger=None,
+            session_config=None,
+            checkpoint_trigger: Optional[Trigger] = None,
             steps_per_epoch: Optional[int] = None, shuffle: bool = True,
             verbose: bool = True, callbacks=None, profile: bool = False,
             max_failure_retries: Optional[int] = None
@@ -117,26 +230,72 @@ class TPUEstimator:
         host's wait for each batch, and each step's time (``step_ms``) from
         CUDA events recorded on the stream as the step starts and ends, so
         the host is never stalled (wall time on the CPU).
-        ``max_failure_retries`` only acts with a checkpoint to retry from,
-        so without ``model_dir`` it changes nothing, as in the JAX
-        estimator."""
-        if checkpoint_trigger is not None:
-            raise NotImplementedError("checkpoint_trigger (the checkpoint "
-                                      "plane) is not ported yet")
+
+        With ``model_dir`` and a ``checkpoint_trigger`` the trigger saves
+        checkpoints; with a trigger or ``max_failure_retries`` (default 5)
+        a failing epoch is retried from the latest checkpoint, as in the
+        JAX estimator. ``fit`` returns only once every queued checkpoint is
+        durable."""
         if isinstance(profile, str):
             raise NotImplementedError("profile=<trace dir> is not ported "
                                       "yet; profile=True is")
-        it = learn_utils.data_to_iterator(data, batch_size, feature_cols,
-                                          label_cols, shuffle=shuffle,
-                                          config=self.config)
+        it = self._iterator(data, batch_size, feature_cols, label_cols,
+                            shuffle)
         # the JAX estimator draws a sample batch to build its engine, which
         # advances the iterator's shuffle-epoch counter: epoch e of a fit
         # shuffles with seed + e + 1 in both
         it._epoch += 1
         self.engine.build()
+        trigger = (Trigger.convert_trigger(checkpoint_trigger)
+                   if checkpoint_trigger else None)
+        if trigger is not None:
+            trigger.arm(self._trainer_state)
+        opted_in = (trigger is not None or max_failure_retries is not None
+                    or "max_failure_retries" in self.config)
+        retries_left = (self.config.get("max_failure_retries", 5)
+                        if max_failure_retries is None
+                        else max_failure_retries)
+        can_recover = (self.model_dir is not None and retries_left > 0
+                       and opted_in)
+        if can_recover and learn_utils.find_latest_checkpoint(
+                self.model_dir)[0] is None:
+            # a restore point exists before the first step
+            self.save_checkpoint(self.model_dir)
+        try:
+            return self._fit_loop(it, epochs, steps_per_epoch, batch_size,
+                                  feature_cols, label_cols, validation_data,
+                                  trigger, profile, verbose, can_recover,
+                                  retries_left)
+        finally:
+            # a failed async write gets one blocking retry
+            if not self.flush_checkpoints() and self.model_dir is not None:
+                try:
+                    self.save_checkpoint(self.model_dir, blocking=True)
+                except Exception as save_err:       # noqa: BLE001
+                    logger.error("final checkpoint could not be written "
+                                 "(%s)", save_err)
+
+    def _fit_loop(self, it, epochs, steps_per_epoch, batch_size,
+                  feature_cols, label_cols, validation_data, trigger,
+                  profile, verbose, can_recover, retries_left):
         epoch_stats = []
-        for ep in range(epochs):
-            stats = self._fit_epoch(it, ep, steps_per_epoch, profile)
+        ep = 0
+        while ep < epochs:
+            try:
+                stats = self._fit_epoch(it, ep, steps_per_epoch, trigger,
+                                        profile)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if not can_recover or retries_left <= 0:
+                    raise
+                retries_left -= 1
+                path = self.load_checkpoint(self.model_dir)
+                logger.warning(
+                    "training failed at epoch %d (%s: %s); restored "
+                    "checkpoint %s, retrying (%d retries left)",
+                    ep + 1, type(e).__name__, e, path, retries_left)
+                continue                 # re-run the failed epoch
             if validation_data is not None:
                 val = self.evaluate(validation_data, batch_size=batch_size,
                                     feature_cols=feature_cols,
@@ -144,33 +303,45 @@ class TPUEstimator:
                 stats.update({f"val_{k}": v for k, v in val.items()})
                 self._trainer_state.score = val.get(
                     next(iter(self.metrics), "loss"), val.get("loss"))
+            if trigger and self.model_dir and trigger(self._trainer_state):
+                self.save_checkpoint(self.model_dir)
             if verbose:
                 logger.info("epoch %d: %s", ep + 1, stats)
             epoch_stats.append(stats)
+            ep += 1
         self.train_stats.extend(epoch_stats)
         return epoch_stats
 
     def _fit_epoch(self, it, ep: int, steps_per_epoch: Optional[int],
-                   profile: bool) -> Dict[str, Any]:
+                   trigger, profile: bool) -> Dict[str, Any]:
         t0 = time.time()
         losses = []                    # device scalars, read at epoch end
         nsteps = steps_per_epoch or it.steps_per_epoch
         timer = _StepTimer(self.device) if profile else None
         data_s = 0.0
         batches = iter(it.epoch())
-        while len(losses) < nsteps:
-            td = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            data_s += time.perf_counter() - td
-            if timer is not None:
-                timer.start()
-            loss = self.engine.train_batch(batch)
-            if timer is not None:
-                timer.stop()
-            losses.append(loss)
-            self._trainer_state.iteration += 1
+        try:
+            while len(losses) < nsteps:
+                td = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                data_s += time.perf_counter() - td
+                if timer is not None:
+                    timer.start()
+                loss = self.engine.train_batch(batch)
+                if timer is not None:
+                    timer.stop()
+                losses.append(loss)
+                self._trainer_state.iteration += 1
+                if trigger and self.model_dir:
+                    self._trainer_state.epoch_finished = False
+                    if trigger(self._trainer_state):
+                        self.save_checkpoint(self.model_dir)
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()                 # stops the pump's threads
         host_losses = torch.stack(losses).cpu().numpy()
         mean_loss = float(np.mean(host_losses))
         self._trainer_state.epoch += 1
@@ -194,17 +365,18 @@ class TPUEstimator:
                  verbose: bool = True) -> Dict[str, float]:
         """Weighted mean loss over the real rows, the metrics, and
         ``num_samples``."""
-        it = learn_utils.data_to_iterator(data, batch_size, feature_cols,
-                                          label_cols, shuffle=False,
-                                          config=self.config)
+        it = self._iterator(data, batch_size, feature_cols, label_cols,
+                            False)
         states = self.engine.init_metric_states()
         losses, counts = [], []
-        for i, batch in enumerate(it.epoch(shuffle=False)):
+        batches = it.epoch(shuffle=False)
+        for i, batch in enumerate(batches):
             if num_steps is not None and i >= num_steps:
                 break
             states, batch_loss, n = self.engine.eval_batch(states, batch)
             losses.append(batch_loss)
             counts.append(n)
+        getattr(batches, "close", lambda: None)()
         loss_sum = float(torch.stack(losses).sum())
         count = float(torch.stack(counts).sum())
         result = self.engine.finalize_metrics(states, loss_sum, count)
@@ -217,14 +389,17 @@ class TPUEstimator:
         """An ndarray (a tuple of them for a module with several outputs),
         one row per input row: the padded tail rows are dropped."""
         shard = learn_utils.xshards_from_arrays(data, feature_cols, None)
-        it = learn_utils.BatchIterator(shard, batch_size, pad_tail=True)
+        it = learn_utils.BatchIterator(shard, batch_size, pad_tail=True,
+                                       device=self.device,
+                                       stats=self._pipeline_stats)
         outs = []
         for batch in it.epoch(shuffle=False):
+            batch = batch.to(self.device)
             preds = self.engine.predict_batch(batch.x)
             multi = isinstance(preds, (list, tuple))
             preds = tuple(preds) if multi else (preds,)
             keep = (slice(None) if batch.w is None
-                    else np.asarray(batch.w) > 0)
+                    else batch.w.cpu().numpy() > 0)
             host = tuple(p.cpu().numpy()[keep] for p in preds)
             outs.append(host if multi else host[0])
         if isinstance(outs[0], tuple):

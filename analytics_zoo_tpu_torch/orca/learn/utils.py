@@ -6,48 +6,79 @@ for one process and one device: user data (a dict ``{"x", "y"}``, an
 The batch stream follows the JAX package's: ``batch_size`` is the global
 batch, the ragged tail is padded with row 0 and masked by a per-row weight
 (1.0 real, 0.0 padding) when ``pad_tail``, a full batch carries ``w=None``,
-and wide leaves are narrowed on the wire (f64 -> f32, i64 -> i32, the
-device form JAX canonicalises to). A shuffled epoch takes the order
-``np.random.RandomState(seed + epoch).permutation(n)``, the JAX package's
-own shuffle when its native runtime is not built.
+and wide leaves are narrowed on the wire (``native.transfer.narrow_wire``).
+A shuffled epoch takes its order from ``native.shuffled_indices(n, seed +
+epoch)``, the same call the JAX package makes: the native xoshiro shuffle
+when the runtime builds, numpy's permutation when it does not, so the two
+packages visit the rows in the same order in the same environment.
 
-Not ported yet: XShards and pandas inputs, the native shuffle and gather,
-the infeed pump's prefetch, and fused (stacked) superbatches.
+``epoch(prefetch=True)`` runs the host-to-device plane: the epoch's
+gathers fan out over the infeed pump's worker threads into pinned staging
+buffers, and its transfer lanes copy each batch to the card on a side
+stream ahead of the step (``native/infeed.py``, ``native/transfer.py``).
+``prefetch=False`` gathers and copies inline. Both deliver the same
+batches in the same order.
+
+Not ported yet: XShards and pandas inputs, and fused (stacked)
+superbatches.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
+from ...native import runtime
+from ...native import transfer as xfer
+from ...native.infeed import (_MAX_DEPTH, InfeedPump, PipelineStats,
+                              _default_workers)
 
 
 @dataclass
 class Batch:
-    """One global batch: tuples of feature/label arrays plus a mask weight
-    (``None`` when every row is real)."""
+    """One global batch: tuples of feature/label leaves plus a mask weight
+    (``None`` when every row is real). Leaves are host numpy arrays, or
+    device tensors whose copies ``ready`` (a CUDA event) follows."""
     x: Tuple[Any, ...]
     y: Optional[Tuple[Any, ...]]
     w: Optional[Any]
+    ready: Optional[Any] = None
+
+    def leaves(self):
+        return list(self.x) + list(self.y or ()) + (
+            [self.w] if self.w is not None else [])
+
+    def rebuild(self, leaves, ready=None) -> "Batch":
+        nx, ny = len(self.x), len(self.y or ())
+        return Batch(x=tuple(leaves[:nx]),
+                     y=tuple(leaves[nx:nx + ny]) if self.y is not None
+                     else None,
+                     w=leaves[nx + ny] if self.w is not None else None,
+                     ready=ready)
 
     def to(self, device: torch.device) -> "Batch":
-        """The same batch as tensors on ``device`` (pinned, non-blocking
-        copies to a GPU)."""
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if device.type == "cuda":
-                return t.pin_memory().to(device, non_blocking=True)
-            return t.to(device)
-
-        return Batch(x=tuple(put(a) for a in self.x),
-                     y=(tuple(put(a) for a in self.y)
-                        if self.y is not None else None),
-                     w=None if self.w is None else put(self.w))
+        """The batch as tensors on ``device``, ready for the current
+        stream. A batch the transfer plane already put there is waited on
+        (the current stream waits on its copies' event, and each tensor is
+        marked as used by that stream); a host batch is copied now."""
+        leaves = self.leaves()
+        if all(isinstance(a, torch.Tensor) and a.device.type == device.type
+               for a in leaves):
+            if self.ready is not None:
+                cur = torch.cuda.current_stream(leaves[0].device)
+                cur.wait_event(self.ready)
+                for t in leaves:
+                    t.record_stream(cur)
+                self.ready = None
+            return self
+        out, _ = xfer.put_tree(leaves, device)
+        return self.rebuild(out)
 
 
 def _as_tuple(v) -> Tuple:
@@ -87,38 +118,85 @@ def xshards_from_arrays(data: Any, feature_cols=None, label_cols=None
 
 
 class BatchIterator:
-    """Epoch iterator over host arrays producing padded global batches
-    (host numpy; ``Batch.to`` moves one to the device)."""
+    """Epoch iterator over host arrays producing padded global batches on
+    ``device`` (host numpy batches when ``device`` is None).
+
+    ``stats`` (a :class:`PipelineStats`) records the ``assemble`` and
+    ``h2d`` stages; ``prefetch_depth``/``prefetch_workers`` size the infeed
+    pump."""
 
     def __init__(self, data: Dict[str, Tuple[np.ndarray, ...]],
                  batch_size: int, shuffle: bool = False, seed: int = 0,
-                 pad_tail: bool = True):
-        self.x = tuple(np.asarray(a) for a in data["x"])
-        self.y = (tuple(np.asarray(a) for a in data["y"])
+                 pad_tail: bool = True, device: Optional[torch.device] = None,
+                 stats: Optional[PipelineStats] = None,
+                 prefetch_depth: int = 2,
+                 prefetch_workers: Optional[int] = None):
+        self.x = tuple(np.ascontiguousarray(a) for a in data["x"])
+        self.y = (tuple(np.ascontiguousarray(a) for a in data["y"])
                   if data.get("y") is not None else None)
         self.n = len(self.x[0])
         self.local_bs = self.global_bs = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.pad_tail = pad_tail
+        self.device = device
+        self.stats = stats if stats is not None else PipelineStats()
+        self.prefetch_depth = prefetch_depth
+        self.prefetch_workers = prefetch_workers
         self.steps_per_epoch = (math.ceil(self.n / self.local_bs) if pad_tail
                                 else self.n // self.local_bs)
         if self.steps_per_epoch == 0:
             raise ValueError(
                 f"dataset has {self.n} rows < local batch {self.local_bs}")
         self._epoch = 0
+        self._staging = None        # StagingPool, built on the first epoch
+        self._stream = None         # the transfer lanes' CUDA stream
 
-    @staticmethod
-    def _gather(a: np.ndarray, idx: np.ndarray) -> np.ndarray:
-        out = a[idx]
-        narrow = _NARROW.get(out.dtype)
-        return out.astype(narrow) if narrow is not None else out
+    # --- assembly -----------------------------------------------------------
+    def _staging_pool(self) -> Optional[xfer.StagingPool]:
+        """Pinned gather buffers for the prefetch path on the card, in a
+        ring sized above the pump's worst-case in-flight window (assembly
+        workers, lane ceiling, depth ceiling, the consumer's batch and a
+        margin), as in the JAX package. None off the card."""
+        if self.device is None or self.device.type != "cuda":
+            return None
+        if self._staging is None:
+            workers = self.prefetch_workers or _default_workers()
+            self._staging = xfer.StagingPool(
+                ring=workers + xfer.MAX_H2D_LANES
+                + max(_MAX_DEPTH, self.prefetch_depth) + 4)
+        return self._staging
 
-    def _host_batches(self, shuffle: bool) -> Iterator[Batch]:
-        """Plan and assemble one epoch of host batches, in batch order."""
+    def _gather_leaf(self, a: np.ndarray, idx: np.ndarray, staged: bool):
+        pool = self._staging_pool() if staged else None
+        if pool is None:
+            return xfer.narrow_wire(runtime.gather_rows(a, idx))
+        wire = xfer.narrows_to(a.dtype) or a.dtype
+        slot = pool.acquire((len(idx),) + a.shape[1:], wire, tag=id(a))
+        if wire == a.dtype:
+            runtime.gather_rows(a, idx, out=slot.array)
+        else:       # a wide leaf: gather, then narrow into the pinned slot
+            np.copyto(slot.array, runtime.gather_rows(a, idx),
+                      casting="unsafe")
+        return slot
+
+    def _assemble_batch(self, idx: np.ndarray, w: Optional[np.ndarray],
+                        staged: bool = False) -> Batch:
+        return Batch(x=tuple(self._gather_leaf(a, idx, staged)
+                             for a in self.x),
+                     y=(tuple(self._gather_leaf(a, idx, staged)
+                              for a in self.y)
+                        if self.y is not None else None),
+                     w=w)
+
+    def _host_batch_tasks(self, shuffle: bool, staged: bool = False
+                          ) -> Iterator[Callable[[], Batch]]:
+        """Plan an epoch: yield zero-arg assembly tasks in batch order. The
+        order is fixed here, so running the tasks inline or on the pump's
+        workers gives the same batches."""
         if shuffle:
-            order = np.random.RandomState(self.seed + self._epoch
-                                          ).permutation(self.n)
+            order = runtime.shuffled_indices(self.n,
+                                             seed=self.seed + self._epoch)
         else:
             order = np.arange(self.n, dtype=np.int64)
         self._epoch += 1
@@ -131,30 +209,94 @@ class BatchIterator:
                     [idx, np.zeros(self.local_bs - real, dtype=idx.dtype)])
                 w = np.zeros(self.local_bs, dtype=np.float32)
                 w[:real] = 1.0
-            yield Batch(x=tuple(self._gather(a, idx) for a in self.x),
-                        y=(tuple(self._gather(a, idx) for a in self.y)
-                           if self.y is not None else None),
-                        w=w)
+            yield partial(self._assemble_batch, idx, w, staged)
 
-    def epoch(self, shuffle: Optional[bool] = None) -> Iterator[Batch]:
-        """Yield the host batches of one epoch."""
-        return self._host_batches(self.shuffle if shuffle is None
-                                  else shuffle)
+    def _host_batches(self, shuffle: bool) -> Iterator[Batch]:
+        """Assembled host batches, inline."""
+        for task in self._host_batch_tasks(shuffle):
+            yield task()
+
+    # --- transfer -----------------------------------------------------------
+    def _put_batch(self, b: Batch, lane: bool = False) -> Batch:
+        """Copy a host batch to the device. From a transfer lane the copies
+        go on the side stream and the lane waits for them, so the ``h2d``
+        stage times the copy itself and a delivered batch is complete;
+        inline they go on the current stream, ahead of the step."""
+        stream = None
+        if lane and self.device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            stream = self._stream
+        out, ev = xfer.put_tree(b.leaves(), self.device, stream)
+        if lane and ev is not None:
+            ev.synchronize()
+        return b.rebuild(out, ready=ev)
+
+    def epoch(self, shuffle: Optional[bool] = None,
+              prefetch: bool = True) -> Iterator[Batch]:
+        """Yield the batches of one epoch: on ``device`` through the
+        infeed pump (``prefetch``) or inline; host batches without a
+        device."""
+        shuffle = self.shuffle if shuffle is None else shuffle
+        if self.device is None:
+            return self._host_batches(shuffle)
+        if not prefetch:
+            return self._inline_epoch(shuffle)
+        return iter(InfeedPump(
+            lambda: self._host_batch_tasks(shuffle, staged=True),
+            device_put=partial(self._put_batch, lane=True),
+            depth=self.prefetch_depth, workers=self.prefetch_workers,
+            stats=self.stats))
+
+    def _inline_epoch(self, shuffle: bool) -> Iterator[Batch]:
+        for task in self._host_batch_tasks(shuffle):
+            t0 = time.perf_counter()
+            b = task()
+            t1 = time.perf_counter()
+            out = self._put_batch(b)
+            t2 = time.perf_counter()
+            nbytes = xfer.wire_nbytes(b.leaves())
+            self.stats.add("assemble", t1 - t0, nbytes=nbytes)
+            self.stats.add("h2d", t2 - t1, nbytes=nbytes)
+            yield out
 
 
 def data_to_iterator(data: Any, batch_size: int, feature_cols=None,
                      label_cols=None, shuffle=False, seed: int = 0,
-                     pad_tail: bool = True,
-                     config: Optional[dict] = None) -> BatchIterator:
+                     pad_tail: bool = True, config: Optional[dict] = None,
+                     device: Optional[torch.device] = None,
+                     stats: Optional[PipelineStats] = None) -> BatchIterator:
     """Front door: any supported data form -> BatchIterator. A
-    ``BatchIterator`` passes through; a callable is a
-    ``data_creator(config, batch_size)``."""
+    ``BatchIterator`` passes through (given the device and stats it lacks);
+    a callable is a ``data_creator(config, batch_size)``. Config keys
+    ``infeed_depth`` and ``infeed_workers`` size the pump."""
     if isinstance(data, BatchIterator):
+        if data.device is None:
+            data.device = device
+        if stats is not None:
+            data.stats = stats
         return data
     if callable(data):
         return data_to_iterator(data(config or {}, batch_size), batch_size,
                                 feature_cols, label_cols, shuffle, seed,
-                                pad_tail, config=config)
+                                pad_tail, config=config, device=device,
+                                stats=stats)
+    cfg = config or {}
     return BatchIterator(xshards_from_arrays(data, feature_cols, label_cols),
                          batch_size, shuffle=shuffle, seed=seed,
-                         pad_tail=pad_tail)
+                         pad_tail=pad_tail, device=device, stats=stats,
+                         prefetch_depth=int(cfg.get("infeed_depth", 2)),
+                         prefetch_workers=cfg.get("infeed_workers"))
+
+
+def find_latest_checkpoint(model_dir: str, model_type: str = "tpu"):
+    """The newest checkpoint dir under ``model_dir`` and its step, or
+    ``(None, None)``. One scanner, ``ckpt.format.loadable_step_dirs``,
+    decides candidacy for this and the plane: a plane dir counts only when
+    committed; bare step dirs of pre-plane layouts count too."""
+    from ...ckpt.format import loadable_step_dirs
+    dirs = loadable_step_dirs(model_dir, bare_ok=True)
+    if not dirs:
+        return None, None
+    step, path = dirs[-1]
+    return path, step

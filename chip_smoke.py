@@ -19,6 +19,20 @@ widths: vocab 30522, hidden 768, 12 layers, 12 heads, intermediate 3072,
 * takes 2 training steps on the card and on the CPU from the same weights
   (phase ``train_vs_cpu``): losses and first-step gradients agree.
 
+Then, with the NCF flagship at MovieLens-1M widths (6040 users, 3706 items,
+5 rating classes, embeddings 64 + 64, MLP (128, 64, 32), bf16 compute,
+batch 262,144; seeded random pairs as in ``bench.py``'s ``bench_ncf``), it
+
+* trains 2 epochs of 8 steps through ``NeuralCF.fit`` with the
+  checkpoint plane (an every-epoch trigger into a temporary ``model_dir``)
+  and the prefetching infeed, then restores the checkpoint into a fresh
+  model whose ``evaluate`` loss must equal the trained one's (``ncf_train``);
+* profiles training steps with prefetch on and off (``ncf_profile``);
+* takes 2 steps on the card and on the CPU from the same weights, in f32
+  and in bf16 (``ncf_vs_cpu``);
+* holds the embedding's one-hot backward (an f32 row sum) against the
+  one-hot matmul it replaces, and times both (``embed_bwd``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -83,6 +97,37 @@ PEAK_BF16 = 989e12
 PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 TIMING_ROUNDS = 9           # rounds of kernel / library timed in turns
+# NCF flagship (bench.py bench_ncf): MovieLens-1M counts, full widths
+NCF_WIDTHS = dict(user_count=6040, item_count=3706, class_num=5,
+                  user_embed=64, item_embed=64, mf_embed=64,
+                  hidden_layers=(128, 64, 32))
+NCF_BATCH = 262144
+NCF_ROWS = 8 * NCF_BATCH            # 8 steps an epoch
+NCF_EPOCHS = 2
+NCF_PROFILE_STEPS = 4
+NCF_CPU_BATCH = 16384               # card vs CPU steps: full widths
+# Card vs CPU NCF steps. f32 (TF32 off on both): BERT's tolerances for the
+# losses and the MLP's and head's first-step gradients, and TOL_STEP_GRAD
+# for the cotangents that reach the two embedding backwards. Each table's
+# gradient is held to TOL_EMBED_BWD against the plain one-hot matmul applied
+# to the card's own ids and cotangents; the card-vs-CPU table gradients are
+# reported, not held (the backward rounds each cotangent to bf16, as the JAX
+# package does, so f32 cotangents a few f32 ulps apart can round one bf16
+# ulp apart; the phase counts those flips).
+# bf16 compute, the flagship: the losses within 1e-2 (they stay near ln 5
+# at these steps whatever the MLP computes, so they cannot tell bf16 from
+# f32), and the first-step gradients per class, each limit between the card
+# vs CPU reading in bf16 and the control, the card's f32-compute gradients
+# against the CPU's bf16 ones, which must miss every limit (readings on an
+# H100 80GB HBM3 at 700 W, sound / control: MLP <= 5.6e-3 / >= 7.4e-2;
+# head kernel 8.8e-5 / 4.0e-3, head bias 7.7e-7 / 6.8e-4; cotangents
+# 5.2e-2 and 7.4e-2 / 0.32 and 0.27).
+TOL_NCF_BF16_LOSS = 1e-2
+TOL_NCF_BF16_GRAD = {"mlp": 2e-2, "head": 2e-4, "cotangent": 0.15}
+# The one-hot backward as a row sum against the one-hot matmul: both sum
+# the same bf16-rounded cotangents in f32, in different orders.
+TOL_EMBED_BWD = 1e-6
+EMBED_BWD_CHECK_IDS = 16384         # the one-hot fits at this batch
 
 
 def emit(obj):
@@ -553,6 +598,405 @@ def train_vs_cpu_phase(card):
         fail("training on the card disagrees with the CPU")
 
 
+# --- NCF -------------------------------------------------------------------
+
+def _ncf_data(rows, seed=0):
+    """bench_ncf's data: random (user, item) pairs over MovieLens-1M's
+    counts and 5 rating classes."""
+    rng = np.random.RandomState(seed)
+    pairs = np.stack([rng.randint(1, NCF_WIDTHS["user_count"], rows),
+                      rng.randint(1, NCF_WIDTHS["item_count"], rows)],
+                     -1).astype(np.int32)
+    return pairs, rng.randint(0, 5, rows).astype(np.int32)
+
+
+def _ncf_model(dtype=torch.bfloat16, seed=0, device=None, model_dir=None):
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import Adam
+    model = NeuralCF(compute_dtype=dtype, seed=seed, device=device,
+                     **NCF_WIDTHS)
+    model.compile(loss="sparse_categorical_crossentropy",
+                  optimizer=Adam(lr=1e-3), model_dir=model_dir)
+    return model
+
+
+class _Count:
+    """Counts the calls of a module function (the embedding backward's
+    row sum and the one-hot matmul), to show which one the path took;
+    with ``keep``, also keeps each call's arguments, on the CPU."""
+
+    def __init__(self, module, name, keep=False):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.calls, self.keep, self.args = 0, keep, []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if self.keep:
+            self.args.append(tuple(a.detach().cpu().clone()
+                                   if isinstance(a, torch.Tensor) else a
+                                   for a in args))
+        return self.inner(*args, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.inner)
+
+
+def ncf_train_phase(card):
+    """NCF flagship training through NeuralCF.fit: 2 epochs of 8 steps at
+    batch 262,144, Adam(lr=1e-3), bf16 compute, the checkpoint plane with
+    an every-epoch trigger, the prefetching infeed; then a fresh model on
+    the card restores the checkpoint and evaluates to the same loss."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.ops import embedding as emb
+    from analytics_zoo_tpu_torch.orca.learn.trigger import EveryEpoch
+
+    t0 = time.perf_counter()
+    pairs, ratings = _ncf_data(NCF_ROWS)
+    data = {"x": pairs, "y": ratings}
+    model_dir = tempfile.mkdtemp(prefix="ncf-ckpt-")
+    try:
+        model = _ncf_model(model_dir=model_dir)
+        setup_s = time.perf_counter() - t0
+        steps = NCF_EPOCHS * NCF_ROWS // NCF_BATCH
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row_sum = _Count(emb, "onehot_sum_backward")   # the path starts
+        matmul = _Count(emb, "onehot_matmul_backward")
+        t_fit = time.perf_counter()
+        stats = model.fit(data, epochs=NCF_EPOCHS, batch_size=NCF_BATCH,
+                          verbose=False, profile=True,
+                          checkpoint_trigger=EveryEpoch())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        row_sum.restore()
+        matmul.restore()                                # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        pipe = model.estimator.data_pipeline_stats()
+        step_ms = [t for s in stats for t in s["profile"]["step_ms"]]
+        losses = [s["train_loss"] for s in stats]
+        if len(step_ms) != steps or not all(map(math.isfinite, losses)):
+            fail(f"NCF fit: {len(step_ms)} steps (expected {steps}), "
+                 f"losses {losses}")
+        if row_sum.calls != 2 * steps or matmul.calls:
+            fail(f"NCF backward took the row sum {row_sum.calls} times and "
+                 f"the one-hot matmul {matmul.calls} times in {steps} "
+                 f"steps (expected {2 * steps} and 0)")
+        if pipe["ckpt"]["saves"] < NCF_EPOCHS or pipe["ckpt"]["errors"]:
+            fail(f"NCF checkpoints: {pipe['ckpt']}")
+        ev_rows = {"x": pairs[:NCF_BATCH], "y": ratings[:NCF_BATCH]}
+        ev = model.evaluate(ev_rows, batch_size=NCF_BATCH, verbose=False)
+        fresh = _ncf_model(seed=1)
+        restored = fresh.estimator.load_checkpoint(model_dir)
+        ev2 = fresh.evaluate(ev_rows, batch_size=NCF_BATCH, verbose=False)
+        if not math.isfinite(ev["loss"]) or ev2["loss"] != ev["loss"]:
+            fail(f"NCF restored loss {ev2['loss']} != trained {ev['loss']}")
+        probs = model.predict(pairs[:4096], batch_size=NCF_BATCH)
+        if probs.shape != (4096, 5) or not np.allclose(probs.sum(-1), 1.0,
+                                                      atol=1e-3):
+            fail(f"NCF predict malformed: {probs.shape}")
+        median_ms = statistics.median(step_ms[1:])
+        emit({"phase": "ncf_train",
+              "model": "NCF flagship, MovieLens-1M widths",
+              "entry": "NeuralCF.fit", "widths": NCF_WIDTHS,
+              "compute_dtype": "bfloat16", "rows": NCF_ROWS,
+              "batch_size": NCF_BATCH, "epochs": NCF_EPOCHS, "steps": steps,
+              "optimizer": "Adam(lr=1e-3)", "train_loss": losses,
+              "step_ms": step_ms, "step_ms_median_after_first": median_ms,
+              "steady_samples_per_s": NCF_BATCH / (median_ms / 1e3),
+              "fit_s": fit_s,
+              "fit_samples_per_s": NCF_EPOCHS * NCF_ROWS / fit_s,
+              "embed_bwd_row_sum_calls": row_sum.calls,
+              "embed_bwd_matmul_calls": matmul.calls,
+              "data_pipeline_stats": pipe,
+              "max_memory_allocated_bytes": peak,
+              "evaluate_loss": ev["loss"], "restored_loss": ev2["loss"],
+              "restored_from": os.path.basename(restored),
+              "card": card, "setup_s": setup_s})
+        return model, pairs, ratings
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def _busy_ms(events):
+    """The union of the device events' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def ncf_profile_phase(model, pairs, ratings, card):
+    """Where NCF training steps spend device time, with the infeed's
+    prefetch on and off: torch.profiler over NCF_PROFILE_STEPS steps (each
+    takes its batch from the epoch iterator, as fit does) after a warm
+    step, kernel time summed by class, and the share of the window the
+    device sat idle (no kernel or copy running)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.native.infeed import PipelineStats
+    from analytics_zoo_tpu_torch.orca.learn.utils import (
+        BatchIterator, xshards_from_arrays)
+    eng = model.estimator.engine
+    out = {}
+    for prefetch in (True, False):
+        it = BatchIterator(xshards_from_arrays({"x": pairs, "y": ratings}),
+                           NCF_BATCH, shuffle=True, device=eng.device,
+                           stats=PipelineStats())
+        batches = it.epoch(prefetch=prefetch)
+        eng.train_batch(next(batches))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(NCF_PROFILE_STEPS):
+                eng.train_batch(next(batches))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        batches.close()
+        by_class = {"embedding_index": 0.0, "gemm": 0.0, "adam": 0.0,
+                    "h2d_copy": 0.0, "other": 0.0}
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        for evt in dev_events:
+            name = evt.name.lower()
+            if "memcpy" in name or "htod" in name:
+                cls = "h2d_copy"
+            elif "gemm" in name or "xmma" in name or "cutlass" in name:
+                cls = "gemm"
+            elif "multi_tensor_apply" in name or "adam" in name:
+                cls = "adam"
+            elif "index" in name or "gather" in name or "scatter" in name:
+                cls = "embedding_index"
+            else:
+                cls = "other"
+            by_class[cls] += evt.time_range.elapsed_us() / 1e3
+        busy = _busy_ms(dev_events)
+        if not dev_events:
+            fail("the profiler saw no device time in the NCF steps")
+        out["prefetch_on" if prefetch else "prefetch_off"] = {
+            "wall_ms_per_step": wall_ms / NCF_PROFILE_STEPS,
+            "device_busy_ms_per_step": busy / NCF_PROFILE_STEPS,
+            "device_ms_by_class_per_step": {
+                k: v / NCF_PROFILE_STEPS for k, v in by_class.items()},
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_events": len(dev_events),
+            "pipeline": it.stats.snapshot()}
+    out["pump_vs_inline"] = _pump_vs_inline(pairs, ratings, eng.device)
+    emit({"phase": "ncf_profile", "batch": NCF_BATCH,
+          "steps_profiled": NCF_PROFILE_STEPS,
+          "classes": {"embedding_index": "gather and index_add kernels of "
+                      "the two lookups (their elementwise masks are in "
+                      "other)", "gemm": "the MLP and head matmuls",
+                      "adam": "torch.optim.Adam's multi-tensor kernels",
+                      "h2d_copy": "host-to-device batch copies"},
+          **out, "card": card})
+
+
+def _pump_vs_inline(pairs, ratings, device):
+    """The prefetching infeed delivers, on the card, the batches the
+    inline path copies, over enough epochs that every pinned staging slot
+    is refilled at least once (batch k takes slot k mod ring, so more than
+    2 x ring batches; the ring must not refill a slot while its last copy
+    is in flight)."""
+    from analytics_zoo_tpu_torch.orca.learn.utils import (
+        BatchIterator, xshards_from_arrays)
+    its = [BatchIterator(xshards_from_arrays({"x": pairs, "y": ratings}),
+                         NCF_BATCH, shuffle=True, device=device)
+           for _ in range(2)]
+    checked = epochs = 0
+    while epochs == 0 or checked <= 2 * its[0]._staging.ring:
+        for got, want in zip(its[0].epoch(prefetch=True),
+                             its[1].epoch(prefetch=False)):
+            got, want = got.to(device), want.to(device)
+            for a, b in zip(got.leaves(), want.leaves()):
+                if not torch.equal(a, b):
+                    fail(f"the infeed delivered batch {checked} torn")
+            checked += 1
+        epochs += 1
+    return {"batches": checked, "epochs": epochs,
+            "ring_slots": its[0]._staging.ring, "equal": True}
+
+
+def _ncf_two_steps(dtype, dev, pairs, ratings):
+    """Two NCF training steps from the seeded weights on ``dev``: the
+    losses, the first step's gradients and the first step's embedding
+    cotangents by table (ids and cotangents as the backward got them), all
+    on the CPU."""
+    from analytics_zoo_tpu_torch.ops import embedding as emb
+    from analytics_zoo_tpu_torch.orca.learn.utils import Batch
+    model = _ncf_model(dtype=dtype, seed=3, device=dev)
+    eng = model.estimator.engine
+    eng.build()
+    losses, grads = [], None
+    for step in range(2):
+        rows = slice(step * NCF_CPU_BATCH, (step + 1) * NCF_CPU_BATCH)
+        rec = _Count(emb, "onehot_sum_backward", keep=step == 0)
+        try:
+            losses.append(float(eng.train_batch(Batch(
+                x=(pairs[rows],), y=(ratings[rows],), w=None))))
+        finally:
+            rec.restore()
+        if step == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.module.named_parameters()}
+            cot = {("user_embed_table" if n_rows == NCF_WIDTHS["user_count"]
+                    + 1 else "item_embed_table"): (ids, g)
+                   for ids, g, n_rows, _ in rec.args}
+    return losses, grads, cot
+
+
+def _bf16_flips(a, b):
+    """How many elements round to different bf16 values."""
+    return int((a.to(torch.bfloat16) != b.to(torch.bfloat16)).sum())
+
+
+def _rows_off(a, b, frac=1e-2):
+    """How many rows differ somewhere by more than ``frac`` of ``b``'s
+    largest element."""
+    limit = frac * b.abs().max()
+    return int(((a - b).abs().amax(-1) > limit).sum())
+
+
+def ncf_vs_cpu_phase(card):
+    """Two NCF training steps from the same seeded weights and batches on
+    the card and on the CPU, at the flagship widths and batch
+    NCF_CPU_BATCH: once in f32 compute (BERT's tolerances) and once in
+    bf16 compute (the flagship), each held as the tolerances above say; the
+    bf16 limits are shown to reject f32 compute."""
+    from analytics_zoo_tpu_torch.ops import embedding as emb
+    pairs, ratings = _ncf_data(2 * NCF_CPU_BATCH, seed=7)
+    runs = {(dtype, dev): _ncf_two_steps(dtype, dev, pairs, ratings)
+            for dtype in (torch.float32, torch.bfloat16)
+            for dev in ("cuda", "cpu")}
+    tables = ("user_embed_table", "item_embed_table")
+
+    def readings(card_run, cpu_run):
+        (_, g_gpu, c_gpu), (_, g_cpu, c_cpu) = card_run, cpu_run
+        out = {n: _rel_err(g_gpu[n], g_cpu[n]) for n in g_cpu
+               if n not in tables}
+        out.update({f"{t}.cotangent": _rel_err(c_gpu[t][1], c_cpu[t][1])
+                    for t in tables})
+        return out
+
+    def limit(name, f32):
+        if f32:
+            return TOL_STEP_GRAD
+        return TOL_NCF_BF16_GRAD["cotangent" if name.endswith("cotangent")
+                                 else "head" if name.startswith("head")
+                                 else "mlp"]
+
+    result, failed = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        (l_gpu, g_gpu, c_gpu) = runs[(dtype, "cuda")]
+        (l_cpu, g_cpu, c_cpu) = runs[(dtype, "cpu")]
+        tol_loss = TOL_STEP_LOSS if f32 else TOL_NCF_BF16_LOSS
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        grad_err = readings(runs[(dtype, "cuda")], runs[(dtype, "cpu")])
+        grad_tol = {n: limit(n, f32) for n in grad_err}
+        table = {}
+        for t in tables:
+            ids, g = c_gpu[t]
+            rows = g_gpu[t].shape[0]
+            table[t] = {
+                # the card's backward against the plain version on the
+                # card's own ids and cotangents: held
+                "vs_plain_on_card_cotangents": _rel_err(
+                    g_gpu[t], emb.onehot_matmul_backward(ids, g, rows,
+                                                         torch.float32)),
+                # reported: the card's table gradient against the CPU's,
+                # and the CPU's backward on the card's cotangents against
+                # the CPU's (the cotangents' share of the difference)
+                "card_vs_cpu": _rel_err(g_gpu[t], g_cpu[t]),
+                "cpu_bwd_on_card_cotangents_vs_cpu": _rel_err(
+                    emb.onehot_matmul_backward(ids, g, rows, torch.float32),
+                    g_cpu[t]),
+                "cotangent_bf16_flips": _bf16_flips(g, c_cpu[t][1]),
+                "cotangent_elements": g.numel(),
+                "cotangent_rows_off_by_1pct": _rows_off(g, c_cpu[t][1]),
+                "cotangent_rows": g.shape[0]}
+        ok = (loss_err <= tol_loss and all(map(math.isfinite, l_gpu))
+              and all(grad_err[n] <= grad_tol[n] for n in grad_err)
+              and all(v["vs_plain_on_card_cotangents"] <= TOL_EMBED_BWD
+                      for v in table.values()))
+        entry = {"loss_card": l_gpu, "loss_cpu": l_cpu,
+                 "loss_rel_err": loss_err, "loss_tol": tol_loss,
+                 "grad_rel_err": grad_err, "grad_tol": grad_tol,
+                 "tables": table, "table_tol": TOL_EMBED_BWD, "ok": ok}
+        if not f32:
+            # the control: f32 compute on the card against bf16 compute on
+            # the CPU must miss every bf16 limit
+            control = readings(runs[(torch.float32, "cuda")],
+                               runs[(torch.bfloat16, "cpu")])
+            entry["control_f32_card_vs_bf16_cpu"] = control
+            entry["control_rejected"] = all(control[n] > grad_tol[n]
+                                            for n in control)
+            ok = entry["ok"] = ok and entry["control_rejected"]
+        result["float32" if f32 else "bfloat16"] = entry
+        if not ok:
+            failed.append("f32" if f32 else "bf16")
+    emit({"phase": "ncf_vs_cpu", "batch": NCF_CPU_BATCH, "steps": 2,
+          **result, "card": card})
+    if failed:
+        fail(f"NCF training on the card disagrees with the CPU "
+             f"({', '.join(failed)} compute)")
+
+
+def embed_bwd_phase(card):
+    """The embedding's one-hot backward as the port computes it (an f32
+    row sum of the bf16-rounded cotangents, index_add_) against the one-hot
+    matmul it replaces, on the card: equal to TOL_EMBED_BWD of the largest
+    gradient at EMBED_BWD_CHECK_IDS ids, then both timed at NCF's batch for
+    each of its two tables (CUDA events around CUDA-graph replays)."""
+    from analytics_zoo_tpu_torch.ops import embedding as emb
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cols = NCF_WIDTHS["user_embed"] + NCF_WIDTHS["mf_embed"]
+    tables = {"user": NCF_WIDTHS["user_count"] + 1,
+              "item": NCF_WIDTHS["item_count"] + 1}
+    out = {}
+    for name, rows in tables.items():
+        ids = torch.randint(0, rows, (EMBED_BWD_CHECK_IDS,), device="cuda",
+                            generator=gen)
+        g = torch.randn(EMBED_BWD_CHECK_IDS, cols, device="cuda",
+                        generator=gen)
+        got = emb.onehot_sum_backward(ids, g, rows, torch.float32)
+        want = emb.onehot_matmul_backward(ids, g, rows, torch.float32)
+        err = _rel_err(got, want)
+        if err > TOL_EMBED_BWD:
+            fail(f"embedding backward ({name} table): {err} > "
+                 f"{TOL_EMBED_BWD} against the one-hot matmul")
+        ids = torch.randint(0, rows, (NCF_BATCH,), device="cuda",
+                            generator=gen)
+        g = torch.randn(NCF_BATCH, cols, device="cuda", generator=gen)
+        times = _time_in_turns({
+            "row_sum": lambda: emb.onehot_sum_backward(ids, g, rows,
+                                                       torch.float32),
+            "matmul": lambda: emb.onehot_matmul_backward(ids, g, rows,
+                                                         torch.float32)},
+            reps=3, rounds=3, graphs=True)
+        nbytes = g.numel() * 4 + ids.numel() * 8 + rows * cols * 4
+        out[name] = {"rows": rows, "cols": cols, "max_rel_err": err,
+                     "checked_ids": EMBED_BWD_CHECK_IDS,
+                     "ms": _spread(times["row_sum"]),
+                     "onehot_matmul_ms": _spread(times["matmul"]),
+                     "onehot_bytes": NCF_BATCH * rows * 4,
+                     "onehot_matmul_flops": 2.0 * NCF_BATCH * rows * cols,
+                     "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes"}
+    emit({"phase": "embed_bwd", "ids": NCF_BATCH, "tol": TOL_EMBED_BWD,
+          "tables": out, "card": card})
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -775,6 +1219,12 @@ def main():
     train_launches, est, data = train_phase(card)
     profile_train_phase(est, data, card)
     train_vs_cpu_phase(card)
+    del est, data
+    ncf, pairs, ratings = ncf_train_phase(card)
+    ncf_profile_phase(ncf, pairs, ratings, card)
+    del ncf, pairs, ratings
+    ncf_vs_cpu_phase(card)
+    embed_bwd_phase(card)
     kernels_line(errs, bwd_errs, serve_launches, train_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

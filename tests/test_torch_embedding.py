@@ -115,3 +115,53 @@ def test_unknown_env_mode_raises(monkeypatch):
     monkeypatch.setenv("ZOO_EMBED_GRAD_MODE", "bogus")
     with pytest.raises(ValueError, match="grad_mode"):
         temb.embedding_lookup(torch.zeros(4, 2), torch.zeros(3, dtype=int))
+
+
+# --- the one-hot backward without the one-hot ------------------------------
+# onehot_sum_backward (the port's backward) against the one-hot matmul it
+# replaces and against jax.grad through the JAX package's one-hot lookup:
+# the bf16-rounded cotangents are summed in f32 on all three sides, in
+# three orders, so they agree to f32 rounding: 1e-6 of the largest
+# gradient.
+R2_TOL = 1e-6
+
+
+@pytest.mark.parametrize("rows,cols", [(6041, 8), (37, 128)])
+def test_onehot_sum_backward_matches_matmul_and_jax(rows, cols):
+    rng = np.random.RandomState(11)
+    n = 512
+    ids = rng.randint(0, rows, n).astype(np.int32)
+    ids[:40] = ids[40]                          # one row shared by 41 ids
+    ids[41:45] = [-1, -rows, rows, rows + 7]    # match no row
+    g = rng.randn(n, cols).astype(np.float32)
+    tids, tg = torch.from_numpy(ids), torch.from_numpy(g)
+    got = temb.onehot_sum_backward(tids, tg, rows, torch.float32).numpy()
+    plain = temb.onehot_matmul_backward(tids, tg, rows,
+                                        torch.float32).numpy()
+    table = jnp.zeros((rows, cols), jnp.float32)
+    want = np.asarray(jax.grad(lambda t: jnp.sum(jemb.embedding_lookup(
+        t, jnp.asarray(ids), grad_mode="onehot") * g))(table))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=R2_TOL * scale)
+    np.testing.assert_allclose(got, want, rtol=0, atol=R2_TOL * scale)
+    # the ids outside [0, rows) added nothing: the wrapped rows hold only
+    # the in-range ids' cotangents
+    for bad in (rows - 1, 0, 7):
+        mine = ids == bad
+        np.testing.assert_allclose(
+            got[bad], torch.from_numpy(g[mine]).bfloat16().float()
+            .sum(0).numpy(), rtol=0, atol=R2_TOL * scale)
+
+
+def test_onehot_backward_allocates_no_one_hot(monkeypatch):
+    """The autograd backward goes through onehot_sum_backward, never the
+    (ids, rows) matmul."""
+    calls = []
+    monkeypatch.setattr(temb, "onehot_matmul_backward",
+                        lambda *a: calls.append(a))
+    table = torch.zeros(50, 4, requires_grad=True)
+    ids = torch.tensor([1, 2, 2, 49])
+    temb.embedding_lookup(table, ids, grad_mode="onehot").sum().backward()
+    assert calls == []
+    np.testing.assert_array_equal(table.grad.sum(1).numpy()[[1, 2, 49]],
+                                  [4.0, 8.0, 4.0])

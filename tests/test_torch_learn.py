@@ -22,7 +22,10 @@ from analytics_zoo_tpu.orca.learn import utils as jutils
 from analytics_zoo_tpu.orca.learn.optimizers import optimizers_impl as jopt
 from analytics_zoo_tpu_torch.orca.learn import losses as tlosses
 from analytics_zoo_tpu_torch.orca.learn import metrics as tmetrics
+from analytics_zoo_tpu_torch.orca.learn import prologue as tpro
 from analytics_zoo_tpu_torch.orca.learn import utils as tutils
+from analytics_zoo_tpu_torch.orca.learn.estimator import \
+    TPUEstimator as TEstimator
 from analytics_zoo_tpu_torch.orca.learn.optimizers import \
     optimizers_impl as topt
 from analytics_zoo_tpu_torch.orca.learn.optimizers import schedule as tsched
@@ -206,15 +209,23 @@ def test_batch_iterator_matches_jax(orca_context):
             np.testing.assert_array_equal(a.w, np.asarray(b.w))
 
 
-def test_shuffled_order_is_numpy_permutation():
+def test_shuffled_order_matches_jax_native_shuffle():
+    """With shuffle on, the port's epochs visit the rows in the JAX
+    package's order: both shuffle with their native runtime's xoshiro
+    Fisher-Yates (built here in both), over three epochs."""
+    from analytics_zoo_tpu import native as jnative
+    from test_torch_ncf import native_runtimes_built
+    assert native_runtimes_built()
     n, seed = 23, 7
     x = np.arange(n, dtype=np.int32)
     it = tutils.BatchIterator({"x": (x,), "y": (x,)}, 5, shuffle=True,
                               seed=seed, pad_tail=False)
     for epoch in range(3):
         rows = np.concatenate([b.x[0] for b in it.epoch()])
-        want = np.random.RandomState(seed + epoch).permutation(n)
+        want = jnative.shuffled_indices(n, seed=seed + epoch)
         np.testing.assert_array_equal(rows, want[:len(rows)])
+        assert not np.array_equal(
+            want, np.random.RandomState(seed + epoch).permutation(n))
     assert it.steps_per_epoch == 4
 
 
@@ -227,3 +238,89 @@ def test_data_to_iterator_forms():
     it = tutils.data_to_iterator(x, 4)
     assert it.y is None
     assert tutils.data_to_iterator(it, 8) is it
+
+
+# --- the host-to-device plane and the prologue ------------------------------
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "uint64",
+                                   "complex128", "uint8", "int32",
+                                   "float32"])
+def test_narrow_wire_matches_jax(dtype):
+    from analytics_zoo_tpu.native import transfer as jxfer
+    from analytics_zoo_tpu_torch.native import transfer as txfer
+    a = (np.random.RandomState(0).randn(7, 3) * 1e3).astype(dtype)
+    got, want = txfer.narrow_wire(a), jxfer.narrow_wire(a)
+    assert got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+    assert txfer.narrows_to(a.dtype) == jxfer.narrows_to(a.dtype)
+    assert txfer.wire_nbytes([a, a[:2]]) == jxfer.wire_nbytes([a, a[:2]])
+
+
+def _prologue_ops(mod):
+    return {"image_normalize": mod.image_normalize(),
+            "rescale": mod.rescale(),
+            "one_hot": mod.one_hot(5),
+            "cast": mod.cast("float32"),
+            "compose": mod.compose(mod.rescale(0.5), mod.cast("float64"))}
+
+
+@pytest.mark.parametrize("name", sorted(_prologue_ops(tpro)))
+def test_prologue_twins_match_jax(name):
+    """Each op's host twin is bit-identical to the JAX package's, and its
+    torch device function gives the same bits as the twin."""
+    from analytics_zoo_tpu.orca.learn import prologue as jpro
+    rng = np.random.RandomState(1)
+    if name == "one_hot":
+        a = rng.randint(-2, 8, (4, 6)).astype(np.int32)   # some out of range
+    else:
+        a = rng.randint(0, 256, (2, 5, 5, 3)).astype(np.uint8)
+    top, jop = _prologue_ops(tpro)[name], _prologue_ops(jpro)[name]
+    host = top.host(a)
+    want = jop.host(a)
+    assert host.dtype == want.dtype and host.tobytes() == want.tobytes()
+    dev = top(torch.from_numpy(a)).numpy()
+    assert dev.dtype == host.dtype and dev.tobytes() == host.tobytes()
+
+
+def test_estimator_runs_the_prologue():
+    """A uint8 input rescaled on the device trains like the f32 input
+    rescaled on the host, bit for bit."""
+    rng = np.random.RandomState(2)
+    x8 = rng.randint(0, 256, (32, 4)).astype(np.uint8)
+    y = rng.randn(32, 1).astype(np.float32)
+    pro = tpro.BatchPrologue(x=(tpro.rescale(),))
+    losses = []
+    for data, prologue in (({"x": x8, "y": y}, pro),
+                           ({"x": pro.host_x((x8,))[0], "y": y}, None)):
+        torch.manual_seed(0)
+        est = TEstimator(torch.nn.Linear(4, 1), loss="mse",
+                         optimizer=topt.SGD(learningrate=0.1),
+                         device="cpu", prologue=prologue)
+        losses.append([s["train_loss"] for s in est.fit(
+            data, epochs=2, batch_size=8, verbose=False)])
+    assert losses[0] == losses[1]
+
+
+def test_pump_delivers_the_inline_batches():
+    """epoch(prefetch=True) (assembly on the pump's workers, copies on its
+    lanes) gives the batches of epoch(prefetch=False), in order, over
+    shuffled epochs with a padded tail; both record their stages."""
+    rng = np.random.RandomState(3)
+    data = {"x": (rng.randn(203, 3), rng.randint(0, 50, (203, 2))),
+            "y": (rng.randint(0, 5, 203),)}
+    its = [tutils.BatchIterator(tutils.xshards_from_arrays(data), 16,
+                                shuffle=True, seed=5,
+                                device=torch.device("cpu"))
+           for _ in range(2)]
+    for _ in range(2):
+        inline = list(its[0].epoch(prefetch=False))
+        pumped = list(its[1].epoch(prefetch=True))
+        assert len(inline) == len(pumped) == 13
+        for a, b in zip(inline, pumped):
+            for u, v in zip(a.leaves(), b.leaves()):
+                assert u.dtype == v.dtype
+                assert torch.equal(u, v)
+    for it in its:
+        snap = it.stats.snapshot()
+        assert snap["assemble_n"] == snap["h2d_n"] == 26
+        assert snap["h2d_bytes"] > 0

@@ -101,6 +101,17 @@ def test_cluster_serving_matches_jax_inference_model(orca_context):
     assert serving.metrics()["records_out"] == 21
 
 
+# the modules each slice added, named so that a missing one fails here
+PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
+    "models", "models.common", "models.common.zoo_model",
+    "models.common.ranker", "models.recommendation",
+    "models.recommendation.neuralcf",
+    "ckpt", "ckpt.format", "ckpt.store", "ckpt.stats", "ckpt.plane",
+    "native", "native.runtime", "native.transfer", "native.infeed",
+    "utils", "utils.crypto", "orca.learn.prologue", "interop",
+    "ops.embedding", "orca.learn.estimator", "orca.learn.utils")]
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports without JAX,
     flax or the JAX package."""
@@ -112,14 +123,16 @@ def test_port_imports_no_jax():
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'analytics_zoo_tpu')]\n"
-        "print(json.dumps([len(names), bad]))\n")
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'analytics_zoo_tpu')]\n"
+        "print(json.dumps([len(names), bad, names]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    n_modules, bad, names = json.loads(proc.stdout.strip().splitlines()[-1])
     assert bad == []
+    assert set(PORTED_MODULES) <= set(names), \
+        sorted(set(PORTED_MODULES) - set(names))
     # every .py file of the package but its top __init__ was imported
     files = glob.glob(os.path.join(REPO, "analytics_zoo_tpu_torch", "**",
                                    "*.py"), recursive=True)
