@@ -7,9 +7,13 @@ wrapper). The port's modules carry the flax module names as submodule
 names, so the mapping is by name, leaf by leaf:
 
 * Dense ``kernel (in, out)``    <-> Linear ``weight (out, in)`` (transposed)
-* LayerNorm ``scale`` / ``bias`` <-> ``weight`` / ``bias``
+* Conv ``kernel (kh, kw, in, out)`` <-> ``weight (out, in, kh, kw)``
+* LayerNorm and BatchNorm ``scale`` / ``bias`` <-> ``weight`` / ``bias``
 * Dense ``bias``, embedding tables (``embedding``) and free parameters
   such as ``position_embedding`` are copied as they are.
+* The ``batch_stats`` collection's ``mean`` / ``var`` <-> the BatchNorm
+  buffers ``running_mean`` / ``running_var`` (a flax ``{"params": ...,
+  "batch_stats": ...}`` variables dict is taken whole).
 
 Every conversion is exact (a transpose or a copy), so a round trip
 flax -> torch -> flax gives back the same bytes. A missing or an extra key,
@@ -23,14 +27,18 @@ in exact arithmetic):
   ``exp_avg``, ``nu`` -> ``exp_avg_sq``, ``count`` -> ``step``, and the
   injected ``learning_rate`` -> each param group's ``lr``;
 * optax ``sgd`` with momentum: the ``TraceState`` trace -> each
-  parameter's ``momentum_buffer``.
+  parameter's ``momentum_buffer``;
+* a scheduled optimizer's ``ScaleByScheduleState.count`` (optax does not
+  wrap a schedule in ``inject_hyperparams``) <-> the engine's step, which
+  the port's schedule reads.
 
-Moments follow their parameter's mapping (a Dense kernel's moments are
-transposed). The optax side may be optax's own namedtuples or the
+Moments follow their parameter's mapping (a Dense or Conv kernel's moments
+are transposed as it is). The optax side may be optax's own namedtuples or the
 checkpoint reader's stand-ins for them (``ckpt.format.stand_in``): both are
 matched by class name and field, so this module imports neither JAX nor
 optax. :func:`state_from_jax` and :func:`state_to_jax` convert whole
-engine states, as a checkpoint holds them.
+engine states, as a checkpoint holds them, BatchNorm statistics (JAX's
+``extra_vars["batch_stats"]``, the port's buffers) included.
 """
 
 from __future__ import annotations
@@ -54,39 +62,73 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``params`` tree -> torch ``state_dict`` (CPU tensors)."""
-    if set(params) == {"params"}:
-        params = params["params"]
+# flax batch_stats leaf <-> torch BatchNorm buffer
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_BUFFERS = {v: k for k, v in _STATS.items()}
+# kernel (flax) -> weight (torch) axis order, by rank: Dense, Conv
+_TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def _split_variables(variables: Mapping[str, Any]):
+    """A flax ``params`` tree, or a variables dict ``{"params", ...}`` that
+    may hold ``batch_stats`` -> (params, batch_stats or None)."""
+    if "params" in variables and set(variables) <= {"params", "batch_stats"}:
+        return variables["params"], variables.get("batch_stats")
+    return variables, None
+
+
+def flax_to_state_dict(variables: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` tree or variables dict (with ``batch_stats``) ->
+    torch ``state_dict`` (CPU tensors)."""
+    params, batch_stats = _split_variables(variables)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(params).items():
         arr = np.asarray(leaf)
         path, _, leaf_name = name.rpartition(".")
         prefix = path + "." if path else ""
         if leaf_name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{name}: only 2-D Dense kernels are "
-                                 f"bridged, got shape {arr.shape}")
+            if arr.ndim not in _TO_TORCH:
+                raise ValueError(f"{name}: only Dense (2-D) and Conv (4-D) "
+                                 f"kernels are bridged, got shape "
+                                 f"{arr.shape}")
             sd[prefix + "weight"] = torch.from_numpy(
-                np.ascontiguousarray(arr.T))
+                np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
         elif leaf_name == "scale":
             sd[prefix + "weight"] = torch.from_numpy(arr.copy())
         else:
             sd[name] = torch.from_numpy(arr.copy())
+    for name, leaf in _flatten(batch_stats or {}).items():
+        path, _, leaf_name = name.rpartition(".")
+        sd[f"{path}.{_STATS[leaf_name]}"] = torch.from_numpy(
+            np.array(leaf))
     return sd
+
+
+def _tree_set(tree: Dict[str, Any], path: Sequence[str], key: str,
+              value) -> None:
+    node = tree
+    for part in path:
+        node = node.setdefault(part, {})
+    node[key] = value
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
                        ) -> Dict[str, Any]:
     """torch ``state_dict`` -> flax ``params`` tree of numpy arrays (the
-    inverse of :func:`flax_to_state_dict`)."""
+    inverse of :func:`flax_to_state_dict`; BatchNorm buffers go to
+    :func:`state_dict_to_batch_stats`)."""
     tree: Dict[str, Any] = {}
     for name, tensor in state_dict.items():
-        arr = tensor.detach().cpu().numpy()
         *path, leaf_name = name.split(".")
+        if leaf_name in _BUFFERS:
+            continue
+        arr = tensor.detach().cpu().numpy()
         if leaf_name == "weight":
-            if arr.ndim == 2:
-                leaf_name, arr = "kernel", np.ascontiguousarray(arr.T)
+            if arr.ndim in _TO_FLAX:
+                leaf_name = "kernel"
+                arr = np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
             elif arr.ndim == 1:
                 leaf_name = "scale"
             else:
@@ -94,18 +136,29 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
                                  f"{arr.ndim}")
         else:
             arr = arr.copy()
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf_name] = arr
+        _tree_set(tree, path, leaf_name, arr)
     return tree
 
 
-def load_flax_params(module: nn.Module, params: Mapping[str, Any]
+def state_dict_to_batch_stats(state_dict: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, Any]:
+    """The BatchNorm buffers of a torch ``state_dict`` -> flax's
+    ``batch_stats`` tree (empty for a module without BatchNorm)."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in state_dict.items():
+        *path, leaf_name = name.split(".")
+        if leaf_name in _BUFFERS:
+            _tree_set(tree, path, _BUFFERS[leaf_name],
+                      tensor.detach().cpu().numpy().copy())
+    return tree
+
+
+def load_flax_params(module: nn.Module, variables: Mapping[str, Any]
                      ) -> nn.Module:
-    """Copy a flax parameter tree into ``module``. Raises on a missing or
-    extra key or a shape mismatch, naming every offender."""
-    sd = flax_to_state_dict(params)
+    """Copy a flax parameter tree, or a variables dict (with the
+    ``batch_stats`` of a module with BatchNorm), into ``module``. Raises on
+    a missing or extra key or a shape mismatch, naming every offender."""
+    sd = flax_to_state_dict(variables)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
@@ -122,6 +175,7 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]
 
 # --- optimizer state ---------------------------------------------------------
 _INJECT = ("InjectStatefulHyperparamsState",)
+_SCHEDULE = ("ScaleByScheduleState",)
 
 
 def _find(tree, names) -> Optional[Any]:
@@ -166,7 +220,8 @@ def optax_state_to_torch(opt_state, optimizer: torch.optim.Optimizer,
                 state[i] = {"step": torch.tensor(float(step)),
                             "exp_avg": mu, "exp_avg_sq": nu}
     elif trace is not None:
-        steps = int(np.asarray(inject.count)) if inject is not None else 1
+        counter = inject or _find(opt_state, _SCHEDULE)
+        steps = int(np.asarray(counter.count)) if counter is not None else 1
         if steps > 0:
             for i, buf in enumerate(_by_name(trace.trace, param_names)):
                 state[i] = {"momentum_buffer": buf}
@@ -201,6 +256,9 @@ def torch_state_to_optax(torch_state: Mapping[str, Any],
                     count=np.asarray(count, np.asarray(node.count).dtype),
                     mu=moments("exp_avg", node.mu),
                     nu=moments("exp_avg_sq", node.nu))
+            if name in _SCHEDULE:
+                return node._replace(
+                    count=np.asarray(step, np.asarray(node.count).dtype))
             if name == "TraceState":
                 return node._replace(trace=moments("momentum_buffer",
                                                    node.trace))
@@ -227,7 +285,11 @@ def state_from_jax(jax_state: Mapping[str, Any], module: nn.Module,
     ``module`` and ``optimizer`` (no optimizer: the moments are
     dropped)."""
     names = [n for n, _ in module.named_parameters()]
-    out = {"params": flax_to_state_dict(jax_state["params"]),
+    variables = {"params": jax_state["params"]}
+    stats = (jax_state.get("extra_vars") or {}).get("batch_stats")
+    if stats:
+        variables["batch_stats"] = stats
+    out = {"params": flax_to_state_dict(variables),
            "opt_state": None, "step": int(jax_state["step"])}
     if optimizer is not None and jax_state.get("opt_state") is not None:
         out["opt_state"] = optax_state_to_torch(jax_state["opt_state"],
@@ -243,8 +305,11 @@ def state_to_jax(port_state: Mapping[str, Any], opt_template
     names = list(port_state["param_names"])
     step = int(port_state["step"])
     opt = port_state.get("opt_state")
-    return {"params": _to_flax(port_state["params"]),
-            "extra_vars": {},
+    sd = {k: torch.as_tensor(np.asarray(v))
+          for k, v in port_state["params"].items()}
+    stats = state_dict_to_batch_stats(sd)
+    return {"params": state_dict_to_flax(sd),
+            "extra_vars": {"batch_stats": stats} if stats else {},
             "opt_state": (None if opt is None else torch_state_to_optax(
                 opt, names, opt_template, step)),
             "step": step, "tp_specs": None}

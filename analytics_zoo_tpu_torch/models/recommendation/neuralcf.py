@@ -29,7 +29,6 @@ flax's; weights are carried across with ``interop``.
 from __future__ import annotations
 
 import logging
-import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -38,26 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.embedding import embedding_lookup
+from ..common.initializers import as_torch_dtype, lecun_normal_
 from ..common.zoo_model import ZooModel
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
-
-# std of a unit normal truncated to [-2, 2]: lecun_normal divides by it
-_TRUNC_STD = 0.87962566103423978
-
-
-def as_torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a name (``"bfloat16"``) or a numpy
-    or JAX scalar type."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if isinstance(dtype, str) else (
-        getattr(dtype, "__name__", None) or getattr(dtype, "name", None)
-        or str(dtype))
-    out = getattr(torch, str(name).rsplit(".", 1)[-1], None)
-    if not isinstance(out, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return out
 
 
 class _Dense(nn.Linear):
@@ -68,10 +51,8 @@ class _Dense(nn.Linear):
                  dtype: torch.dtype, gen: torch.Generator):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        lecun_normal_(self.weight, in_features, gen)
         with torch.no_grad():
-            std = math.sqrt(1.0 / in_features) / _TRUNC_STD
-            nn.init.trunc_normal_(self.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=gen)
             self.bias.zero_()
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:

@@ -131,7 +131,9 @@ class MXUEmbed(nn.Module):
     """The ``MXUEmbed`` counterpart: one ``(num_embeddings, features)``
     parameter named ``embedding`` (checkpoint-compatible with the flax
     module), initialised like flax's ``variance_scaling(1, fan_in,
-    normal, out_axis=0)``: normal with std ``1/sqrt(num_embeddings)``."""
+    normal, out_axis=0)``: on a 2-D ``(num_embeddings, features)`` shape
+    that fan_in is ``features``, so the table is N(0, 1/features), std
+    ``1/sqrt(features)``."""
 
     def __init__(self, num_embeddings: int, features: int,
                  grad_mode: str = "auto"):
@@ -140,8 +142,7 @@ class MXUEmbed(nn.Module):
             raise ValueError(f"unknown grad_mode {grad_mode!r}")
         self.grad_mode = grad_mode
         self.embedding = nn.Parameter(
-            torch.randn(num_embeddings, features)
-            / math.sqrt(num_embeddings))
+            torch.randn(num_embeddings, features) / math.sqrt(features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return embedding_lookup(self.embedding, ids,

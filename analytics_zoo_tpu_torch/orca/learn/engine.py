@@ -9,16 +9,22 @@ engine's names and semantics:
 
 * ``_train_step``: per-example loss, reduced as the weighted mean over the
   real rows of the batch (``w=None``: every row is real); clip; update.
+  With a schedule (the optimizer factory's ``lr_at``) every param group's
+  lr is set to ``lr_at(step)`` first, ``step`` counting the updates made
+  before this one, as optax's ``scale_by_schedule`` counts them.
 * ``_eval_step``: loss times the row count, and the metric states, so that
   ``evaluate`` sums them over batches.
 * ``_predict_step``: the module in ``eval()`` mode.
 
 The module's ``train()``/``eval()`` mode takes the place of the flax
-``train`` argument. ``build`` hands the engine's ``torch.Generator`` to
-every ``Dropout`` of the module once; each train step reseeds it from
-``seed`` and the step, so a step's masks are a function of both, as
-``fold_in(PRNGKey(seed), step)`` makes them in JAX (the two generators give
-different bits). Parameters are initialised when the module is
+``train`` argument, and its buffers (BatchNorm's running statistics) that
+of the flax collections besides ``params``: a train step updates them in
+the forward, ``get_state``/``set_state`` carry them with the parameters,
+and the optimizer never sees them. ``build`` hands the engine's
+``torch.Generator`` to every ``Dropout`` of the module once; each train
+step reseeds it from ``seed`` and the step, so a step's masks are a
+function of both, as ``fold_in(PRNGKey(seed), step)`` makes them in JAX
+(the two generators give different bits). Parameters are initialised when the module is
 constructed; ``build`` moves nothing and re-initialises nothing, so weights
 a caller loaded (for example through ``interop``) are what trains.
 
@@ -63,6 +69,7 @@ class TrainEngine:
                  device: torch.device, seed: int = 0, prologue=None):
         self.module = module
         self.make_optimizer = optimizer
+        self.lr_at = getattr(optimizer, "lr_at", None)
         self.loss_fn = loss_fn
         self.metrics = metrics
         self.device = device
@@ -152,6 +159,10 @@ class TrainEngine:
         grads = [p.grad for p in self.module.parameters()
                  if p.grad is not None]
         self._clip_grads(grads)
+        if self.lr_at is not None:
+            lr = self.lr_at(self.step)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
         self.opt.step()
         return loss.detach()
 

@@ -83,6 +83,17 @@ class _StepTimer:
         return [a.elapsed_time(b) for a, b in self.marks]
 
 
+def _draw_sample(it):
+    """Draw the first batch of an unshuffled inline epoch, as the JAX
+    estimator does to build its engine in ``fit`` and ``evaluate``. The
+    draw advances the iterator's epoch counter (a ``BatchIterator``'s
+    ``_epoch``, an ``ImageNetPipeline``'s ``_epoch_idx``) as it does there,
+    so epoch e of a fit shuffles and crops with seed + e + 1 in both."""
+    gen = it.epoch(shuffle=False, prefetch=False)
+    next(gen, None)
+    gen.close()
+
+
 class TPUEstimator:
     """Trains, evaluates and predicts with one ``nn.Module`` on one
     device."""
@@ -241,10 +252,7 @@ class TPUEstimator:
                                       "yet; profile=True is")
         it = self._iterator(data, batch_size, feature_cols, label_cols,
                             shuffle)
-        # the JAX estimator draws a sample batch to build its engine, which
-        # advances the iterator's shuffle-epoch counter: epoch e of a fit
-        # shuffles with seed + e + 1 in both
-        it._epoch += 1
+        _draw_sample(it)
         self.engine.build()
         trigger = (Trigger.convert_trigger(checkpoint_trigger)
                    if checkpoint_trigger else None)
@@ -367,6 +375,7 @@ class TPUEstimator:
         ``num_samples``."""
         it = self._iterator(data, batch_size, feature_cols, label_cols,
                             False)
+        _draw_sample(it)
         states = self.engine.init_metric_states()
         losses, counts = [], []
         batches = it.epoch(shuffle=False)

@@ -19,9 +19,14 @@ exact arithmetic (they differ only in rounding order):
   torch's AdamW first scales p by (1 - lr*wd), then p -= lr*adam: the same
   sum.
 
-Only the ``Default`` (constant) lr schedule is ported. ``Adagrad``,
-``Adadelta``, ``Adamax``, ``RMSprop``, ``Ftrl`` and ``LBFGS`` raise "not
-ported yet" when constructed.
+A schedule (``Default``, ``Poly``, ``Warmup``, ``SequentialSchedule``)
+rides on the factory as ``factory.lr_at(step)``: the engine sets every
+param group's lr to it before each update, with the count of earlier
+updates, which is optax's ``scale_by_schedule`` (optax multiplies the
+update by ``lr(count)``; each of the three rules above is linear in its
+lr, AdamW's decay term included). A constant lr leaves ``lr_at`` None.
+``Adagrad``, ``Adadelta``, ``Adamax``, ``RMSprop``, ``Ftrl`` and
+``LBFGS`` raise "not ported yet" when constructed.
 """
 
 from __future__ import annotations
@@ -43,10 +48,19 @@ class Optimizer:
     def __init__(self, lr: float, schedule: Optional[Scheduler] = None):
         self.lr = lr
         self.schedule = schedule or Default()
-        if type(self.schedule) is not Default:
-            raise NotImplementedError(
-                f"lr schedule {type(self.schedule).__name__} is not ported "
-                "yet (only Default is)")
+        if not isinstance(self.schedule, Scheduler):
+            raise ValueError(f"{self.schedule!r} is not a schedule of "
+                             "orca.learn.optimizers.schedule")
+
+    def lr_at(self, step: int) -> float:
+        """The lr of the update that follows ``step`` earlier updates."""
+        return self.schedule.lr_at(step, self.lr)
+
+    def _factory(self, make: OptimizerFactory) -> OptimizerFactory:
+        """``make`` with the schedule as ``make.lr_at`` (None: constant)."""
+        make.lr_at = (None if type(self.schedule) is Default
+                      else self.lr_at)
+        return make
 
     def to_torch(self) -> OptimizerFactory:
         raise NotImplementedError
@@ -61,9 +75,9 @@ class SGD(Optimizer):
         self.weightdecay = weightdecay
 
     def to_torch(self):
-        return lambda params: torch.optim.SGD(
+        return self._factory(lambda params: torch.optim.SGD(
             params, lr=self.lr, momentum=self.momentum,
-            nesterov=self.nesterov, weight_decay=self.weightdecay)
+            nesterov=self.nesterov, weight_decay=self.weightdecay))
 
 
 class Adam(Optimizer):
@@ -77,8 +91,8 @@ class Adam(Optimizer):
         self.b1, self.b2, self.eps = beta_1, beta_2, epsilon
 
     def to_torch(self):
-        return lambda params: torch.optim.Adam(
-            params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps)
+        return self._factory(lambda params: torch.optim.Adam(
+            params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps))
 
 
 class ParallelAdam(Adam):
@@ -97,9 +111,9 @@ class AdamWeightDecay(Optimizer):
                                                epsilon)
 
     def to_torch(self):
-        return lambda params: torch.optim.AdamW(
+        return self._factory(lambda params: torch.optim.AdamW(
             params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.wd)
+            weight_decay=self.wd))
 
 
 class _NotPorted(Optimizer):

@@ -117,42 +117,33 @@ def xshards_from_arrays(data: Any, feature_cols=None, label_cols=None
     return shard
 
 
-class BatchIterator:
-    """Epoch iterator over host arrays producing padded global batches on
-    ``device`` (host numpy batches when ``device`` is None).
+class DeviceFeed:
+    """The device side of an epoch iterator, shared by
+    :class:`BatchIterator` and ``orca.data.image.ImageNetPipeline``. A
+    subclass plans an epoch with ``_host_batch_tasks(shuffle, staged)``,
+    an iterator of zero-argument assembly tasks in batch order (``staged``:
+    assemble into the pinned ``StagingPool``); this class runs them inline
+    or through the infeed pump and copies their batches to ``device``.
 
     ``stats`` (a :class:`PipelineStats`) records the ``assemble`` and
-    ``h2d`` stages; ``prefetch_depth``/``prefetch_workers`` size the infeed
-    pump."""
+    ``h2d`` stages; ``prefetch_depth``/``prefetch_workers`` size the pump.
+    """
 
-    def __init__(self, data: Dict[str, Tuple[np.ndarray, ...]],
-                 batch_size: int, shuffle: bool = False, seed: int = 0,
-                 pad_tail: bool = True, device: Optional[torch.device] = None,
+    def __init__(self, device: Optional[torch.device] = None,
                  stats: Optional[PipelineStats] = None,
                  prefetch_depth: int = 2,
                  prefetch_workers: Optional[int] = None):
-        self.x = tuple(np.ascontiguousarray(a) for a in data["x"])
-        self.y = (tuple(np.ascontiguousarray(a) for a in data["y"])
-                  if data.get("y") is not None else None)
-        self.n = len(self.x[0])
-        self.local_bs = self.global_bs = int(batch_size)
-        self.shuffle = shuffle
-        self.seed = seed
-        self.pad_tail = pad_tail
         self.device = device
         self.stats = stats if stats is not None else PipelineStats()
         self.prefetch_depth = prefetch_depth
         self.prefetch_workers = prefetch_workers
-        self.steps_per_epoch = (math.ceil(self.n / self.local_bs) if pad_tail
-                                else self.n // self.local_bs)
-        if self.steps_per_epoch == 0:
-            raise ValueError(
-                f"dataset has {self.n} rows < local batch {self.local_bs}")
-        self._epoch = 0
         self._staging = None        # StagingPool, built on the first epoch
         self._stream = None         # the transfer lanes' CUDA stream
 
-    # --- assembly -----------------------------------------------------------
+    def _host_batch_tasks(self, shuffle: bool, staged: bool = False
+                          ) -> Iterator[Callable[[], Batch]]:
+        raise NotImplementedError
+
     def _staging_pool(self) -> Optional[xfer.StagingPool]:
         """Pinned gather buffers for the prefetch path on the card, in a
         ring sized above the pump's worst-case in-flight window (assembly
@@ -167,6 +158,74 @@ class BatchIterator:
                 + max(_MAX_DEPTH, self.prefetch_depth) + 4)
         return self._staging
 
+    def _put_batch(self, b: Batch, lane: bool = False) -> Batch:
+        """Copy a host batch to the device. From a transfer lane the copies
+        go on the side stream and the lane waits for them, so the ``h2d``
+        stage times the copy itself and a delivered batch is complete;
+        inline they go on the current stream, ahead of the step."""
+        stream = None
+        if lane and self.device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            stream = self._stream
+        out, ev = xfer.put_tree(b.leaves(), self.device, stream)
+        if lane and ev is not None:
+            ev.synchronize()
+        return b.rebuild(out, ready=ev)
+
+    def _device_epoch(self, shuffle: bool, prefetch: bool
+                      ) -> Iterator[Batch]:
+        """One epoch's batches on ``device``: through the infeed pump
+        (``prefetch``) or assembled and copied inline; both deliver the
+        same batches in the same order."""
+        if not prefetch:
+            return self._inline_epoch(shuffle)
+        return iter(InfeedPump(
+            lambda: self._host_batch_tasks(shuffle, staged=True),
+            device_put=partial(self._put_batch, lane=True),
+            depth=self.prefetch_depth, workers=self.prefetch_workers,
+            stats=self.stats))
+
+    def _inline_epoch(self, shuffle: bool) -> Iterator[Batch]:
+        for task in self._host_batch_tasks(shuffle):
+            t0 = time.perf_counter()
+            b = task()
+            t1 = time.perf_counter()
+            out = self._put_batch(b)
+            t2 = time.perf_counter()
+            nbytes = xfer.wire_nbytes(b.leaves())
+            self.stats.add("assemble", t1 - t0, nbytes=nbytes)
+            self.stats.add("h2d", t2 - t1, nbytes=nbytes)
+            yield out
+
+
+class BatchIterator(DeviceFeed):
+    """Epoch iterator over host arrays producing padded global batches on
+    ``device`` (host numpy batches when ``device`` is None)."""
+
+    def __init__(self, data: Dict[str, Tuple[np.ndarray, ...]],
+                 batch_size: int, shuffle: bool = False, seed: int = 0,
+                 pad_tail: bool = True, device: Optional[torch.device] = None,
+                 stats: Optional[PipelineStats] = None,
+                 prefetch_depth: int = 2,
+                 prefetch_workers: Optional[int] = None):
+        super().__init__(device, stats, prefetch_depth, prefetch_workers)
+        self.x = tuple(np.ascontiguousarray(a) for a in data["x"])
+        self.y = (tuple(np.ascontiguousarray(a) for a in data["y"])
+                  if data.get("y") is not None else None)
+        self.n = len(self.x[0])
+        self.local_bs = self.global_bs = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.pad_tail = pad_tail
+        self.steps_per_epoch = (math.ceil(self.n / self.local_bs) if pad_tail
+                                else self.n // self.local_bs)
+        if self.steps_per_epoch == 0:
+            raise ValueError(
+                f"dataset has {self.n} rows < local batch {self.local_bs}")
+        self._epoch = 0
+
+    # --- assembly -----------------------------------------------------------
     def _gather_leaf(self, a: np.ndarray, idx: np.ndarray, staged: bool):
         pool = self._staging_pool() if staged else None
         if pool is None:
@@ -216,22 +275,6 @@ class BatchIterator:
         for task in self._host_batch_tasks(shuffle):
             yield task()
 
-    # --- transfer -----------------------------------------------------------
-    def _put_batch(self, b: Batch, lane: bool = False) -> Batch:
-        """Copy a host batch to the device. From a transfer lane the copies
-        go on the side stream and the lane waits for them, so the ``h2d``
-        stage times the copy itself and a delivered batch is complete;
-        inline they go on the current stream, ahead of the step."""
-        stream = None
-        if lane and self.device.type == "cuda":
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            stream = self._stream
-        out, ev = xfer.put_tree(b.leaves(), self.device, stream)
-        if lane and ev is not None:
-            ev.synchronize()
-        return b.rebuild(out, ready=ev)
-
     def epoch(self, shuffle: Optional[bool] = None,
               prefetch: bool = True) -> Iterator[Batch]:
         """Yield the batches of one epoch: on ``device`` through the
@@ -240,25 +283,7 @@ class BatchIterator:
         shuffle = self.shuffle if shuffle is None else shuffle
         if self.device is None:
             return self._host_batches(shuffle)
-        if not prefetch:
-            return self._inline_epoch(shuffle)
-        return iter(InfeedPump(
-            lambda: self._host_batch_tasks(shuffle, staged=True),
-            device_put=partial(self._put_batch, lane=True),
-            depth=self.prefetch_depth, workers=self.prefetch_workers,
-            stats=self.stats))
-
-    def _inline_epoch(self, shuffle: bool) -> Iterator[Batch]:
-        for task in self._host_batch_tasks(shuffle):
-            t0 = time.perf_counter()
-            b = task()
-            t1 = time.perf_counter()
-            out = self._put_batch(b)
-            t2 = time.perf_counter()
-            nbytes = xfer.wire_nbytes(b.leaves())
-            self.stats.add("assemble", t1 - t0, nbytes=nbytes)
-            self.stats.add("h2d", t2 - t1, nbytes=nbytes)
-            yield out
+        return self._device_epoch(shuffle, prefetch)
 
 
 def data_to_iterator(data: Any, batch_size: int, feature_cols=None,
@@ -266,11 +291,13 @@ def data_to_iterator(data: Any, batch_size: int, feature_cols=None,
                      pad_tail: bool = True, config: Optional[dict] = None,
                      device: Optional[torch.device] = None,
                      stats: Optional[PipelineStats] = None) -> BatchIterator:
-    """Front door: any supported data form -> BatchIterator. A
-    ``BatchIterator`` passes through (given the device and stats it lacks);
-    a callable is a ``data_creator(config, batch_size)``. Config keys
-    ``infeed_depth`` and ``infeed_workers`` size the pump."""
-    if isinstance(data, BatchIterator):
+    """Front door: any supported data form -> BatchIterator. An iterator
+    already (a :class:`DeviceFeed`: a ``BatchIterator``, an
+    ``ImageNetPipeline`` streaming from disk) passes through, given the
+    device it lacks and ``stats``; a callable is a
+    ``data_creator(config, batch_size)``. Config keys ``infeed_depth`` and
+    ``infeed_workers`` size the pump."""
+    if isinstance(data, DeviceFeed):
         if data.device is None:
             data.device = device
         if stats is not None:

@@ -33,6 +33,22 @@ batch 262,144; seeded random pairs as in ``bench.py``'s ``bench_ncf``), it
 * holds the embedding's one-hot backward (an f32 row sum) against the
   one-hot matmul it replaces, and times both (``embed_bwd``).
 
+Then, with ResNet-50 v1.5 at bench.py's ``bench_resnet50`` configuration
+(1000 classes, batch 256, crop 224 out of 232 px uint8 images, bf16
+compute, SGD with momentum 0.9 under Warmup -> Poly; 2048 seeded synthetic
+images, seeded random weights), it
+
+* trains 2 epochs of 8 steps through ``TPUEstimator.fit`` over the
+  streaming ``ImageNetPipeline`` with the checkpoint plane, holds each
+  step's lr to the schedule's, and restores the checkpoint into a fresh
+  model whose ``evaluate`` loss must equal the trained one's
+  (``resnet_train``);
+* profiles training steps: device time by class, idle share, step FLOPs
+  and MFU (``resnet_profile``);
+* takes 2 steps on the card and on the CPU from the same weights, in f32
+  and in bf16, and the f32 steps again with the CPU's ReLU masks and
+  max-pool choices imposed on the card (``resnet_vs_cpu``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -44,9 +60,11 @@ non-zero and prints no result.
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -128,6 +146,43 @@ TOL_NCF_BF16_GRAD = {"mlp": 2e-2, "head": 2e-4, "cotangent": 0.15}
 # the same bf16-rounded cotangents in f32, in different orders.
 TOL_EMBED_BWD = 1e-6
 EMBED_BWD_CHECK_IDS = 16384         # the one-hot fits at this batch
+# ResNet-50 (bench.py bench_resnet50): 1000 classes, crop 224 out of 232 px
+# uint8 images, batch 256, SGD momentum 0.9 under Warmup -> Poly with the
+# reference recipe's peak 0.1 * batch / 256, bf16 compute; 2048 seeded
+# synthetic images (ImageNet is not in the repository), 2 epochs of 8 steps
+RESNET = dict(depth=50, classes=1000, images=2048, image_size=232,
+              crop=224, batch=256, shard_size=1024, epochs=2)
+RESNET_PROFILE_STEPS = 4
+RESNET_CPU_BATCH = 8                # card vs CPU steps: full widths
+# Card vs CPU ResNet-50 steps: the losses (relative), the first-step
+# gradients by class (the largest error of a parameter relative to its
+# largest gradient) and the BatchNorm statistics after step 2 (likewise).
+# Each limit but the losses' sits between the card-vs-CPU reading and a
+# control that must miss it: for f32 (TF32 off on both) the card's bf16
+# run against the CPU's f32 one, for bf16 the card's f32 run against the
+# CPU's bf16 one. The losses stay near ln(1000) after two steps whatever
+# the compute, so no control is asked of them. The f32 gradients of the
+# convs and BatchNorms are not held to BERT's 1e-3: ReLU outputs whose f32
+# pre-activation lies within rounding of 0 are 0 on one side and not on
+# the other (the phase counts them), and each moves one term of a 7x7
+# stage's per-channel sums of 392 (readings on an H100 80GB HBM3 at 700 W,
+# reading / control: f32 conv 4.5e-2 / 0.30, BatchNorm 7.7e-2 / 0.27,
+# head 9.7e-7 / 1.2e-2, statistics 3.1e-6 / 7.5e-3; bf16 conv 0.18 /
+# 0.30, BatchNorm 0.14 / 0.27, head 5.6e-3 / 1.2e-2, statistics 7.3e-4 /
+# 7.5e-3; 10 distinct ReLU flips in the first step's 76,869,632 ReLU
+# outputs). The witness that those flips make the whole f32 difference:
+# the card's f32 steps again with the CPU's ReLU masks and max-pool
+# choices imposed, held to BERT's f32 limits in every class (reading:
+# loss 1.4e-7, statistics 9.9e-7, conv 3.4e-6, BatchNorm 3.3e-5, head
+# 9.7e-7).
+TOL_RESNET = {
+    "float32": {"loss": TOL_STEP_LOSS, "stats": 1e-4, "grad_head": 1e-3,
+                "grad_conv": 0.1, "grad_batch_norm": 0.1},
+    "float32_switches_imposed": {
+        "loss": TOL_STEP_LOSS, "stats": 1e-4, "grad_head": TOL_STEP_GRAD,
+        "grad_conv": TOL_STEP_GRAD, "grad_batch_norm": TOL_STEP_GRAD},
+    "bfloat16": {"loss": 1e-3, "stats": 2.5e-3, "grad_head": 8e-3,
+                 "grad_conv": 0.24, "grad_batch_norm": 0.2}}
 
 
 def emit(obj):
@@ -997,6 +1052,468 @@ def embed_bwd_phase(card):
           "tables": out, "card": card})
 
 
+# --- ResNet-50 ---------------------------------------------------------------
+
+def _resnet_schedule(spe):
+    """bench_resnet50's lr: warm up over 5 epochs to 0.1 * batch / 256,
+    then decay as poly(2) over 85 epochs."""
+    from analytics_zoo_tpu_torch.orca.learn.optimizers.schedule import (
+        Poly, SequentialSchedule, Warmup)
+    peak = 0.1 * RESNET["batch"] / 256
+    warm = 5 * spe
+    return (SequentialSchedule().add(Warmup(delta=peak / warm), warm)
+            .add(Poly(2.0, 85 * spe), 85 * spe))
+
+
+def _resnet_estimator(seed, dev, sched=None, dtype=torch.bfloat16, lr=0.0,
+                      model_dir=None):
+    """ResNet-50 from torch's generator seeded with ``seed``, trained by
+    SGD with momentum 0.9. The loss takes the logits head's output as
+    logits: bench_resnet50's string loss expects probabilities and, fed
+    logits, clips the true class's at its epsilon with a zero gradient."""
+    from analytics_zoo_tpu_torch.models.image import resnet
+    from analytics_zoo_tpu_torch.orca.learn.estimator import TPUEstimator
+    from analytics_zoo_tpu_torch.orca.learn.losses import \
+        sparse_categorical_crossentropy
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import SGD
+    torch.manual_seed(seed)
+    model = resnet(RESNET["depth"], RESNET["classes"], compute_dtype=dtype)
+    return TPUEstimator(
+        model, loss=partial(sparse_categorical_crossentropy,
+                            from_logits=True),
+        optimizer=SGD(learningrate=lr, momentum=0.9,
+                      leaningrate_schedule=sched),
+        model_dir=model_dir, device=dev)
+
+
+class _LrLog:
+    """Records the lr each optimizer step applies (param group 0)."""
+
+    def __init__(self, opt):
+        self.opt, self.inner, self.lrs = opt, opt.step, []
+        opt.step = self
+
+    def __call__(self, *args, **kwargs):
+        self.lrs.append(self.opt.param_groups[0]["lr"])
+        return self.inner(*args, **kwargs)
+
+
+def resnet_train_phase(card, root):
+    """bench_resnet50's configuration through TPUEstimator.fit over the
+    streaming ImageNetPipeline: 2 epochs of 8 steps with the checkpoint
+    plane (an every-epoch trigger) and the prefetching infeed; each step's
+    lr is held to the schedule's; then a fresh model restores the last
+    checkpoint and evaluates an eval-mode pipeline to the same loss."""
+    from analytics_zoo_tpu_torch.orca.data.image import (
+        ImageNetPipeline, write_synthetic_imagenet)
+    from analytics_zoo_tpu_torch.orca.learn.trigger import EveryEpoch
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(root, "data")
+    model_dir = os.path.join(root, "ckpt")
+    write_synthetic_imagenet(data_dir, RESNET["images"],
+                             image_size=RESNET["image_size"],
+                             num_classes=RESNET["classes"],
+                             shard_size=RESNET["shard_size"])
+    write_s = time.perf_counter() - t0
+    pipe = ImageNetPipeline(data_dir, RESNET["batch"],
+                            crop_size=RESNET["crop"], train=True)
+    spe = pipe.steps_per_epoch
+    steps = RESNET["epochs"] * spe
+    sched = _resnet_schedule(spe)
+    est = _resnet_estimator(0, "cuda", sched, model_dir=model_dir)
+    est.engine.build()
+    lr_log = _LrLog(est.engine.opt)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    stats = est.fit(pipe, epochs=RESNET["epochs"], verbose=False,
+                    profile=True, checkpoint_trigger=EveryEpoch())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    peak = torch.cuda.max_memory_allocated()
+    pipe_stats = est.data_pipeline_stats()
+    step_ms = [t for s in stats for t in s["profile"]["step_ms"]]
+    losses = [s["train_loss"] for s in stats]
+    want_lr = [sched.lr_at(k, 0.0) for k in range(steps)]
+    if len(step_ms) != steps or not all(map(math.isfinite, losses)):
+        fail(f"ResNet fit: {len(step_ms)} steps (expected {steps}), "
+             f"losses {losses}")
+    if lr_log.lrs != want_lr:
+        fail(f"ResNet steps used lr {lr_log.lrs}, the schedule says "
+             f"{want_lr}")
+    ckpt = pipe_stats["ckpt"]
+    if ckpt["saves"] < RESNET["epochs"] or ckpt["errors"]:
+        fail(f"ResNet checkpoints: {ckpt}")
+    eval_pipe = ImageNetPipeline(data_dir, RESNET["batch"],
+                                 crop_size=RESNET["crop"], train=False)
+    ev = est.evaluate(eval_pipe, verbose=False)
+    fresh = _resnet_estimator(1, "cuda", sched)
+    restored = fresh.load_checkpoint(model_dir)
+    ev2 = fresh.evaluate(eval_pipe, verbose=False)
+    if not math.isfinite(ev["loss"]) or ev2["loss"] != ev["loss"]:
+        fail(f"ResNet restored loss {ev2['loss']} != trained {ev['loss']}")
+    crops = next(eval_pipe._host_batches(False)).x[0][:64]
+    logits = est.predict(crops, batch_size=64)
+    if logits.shape != (len(crops), RESNET["classes"]) or \
+            not np.isfinite(logits).all():
+        fail(f"ResNet predict malformed: {logits.shape}")
+    est.shutdown()
+    fresh.shutdown()
+    eval_pipe.close()
+    del fresh
+    median_ms = statistics.median(step_ms[1:])
+    emit({"phase": "resnet_train",
+          "model": "ResNet-50 v1.5, 1000 classes (bench_resnet50)",
+          "entry": "TPUEstimator(resnet(50, 1000)).fit(ImageNetPipeline)",
+          "compute_dtype": "bfloat16", "config": RESNET,
+          "steps_per_epoch": spe, "steps": steps,
+          "optimizer": "SGD(momentum=0.9), Warmup(40) -> Poly(2, 680)",
+          "lr_per_step": lr_log.lrs, "train_loss": losses,
+          "step_ms": step_ms, "first_step_ms": step_ms[0],
+          "step_ms_median_after_first": median_ms,
+          "step_ms_min_after_first": min(step_ms[1:]),
+          "step_ms_max_after_first": max(step_ms[1:]),
+          "steady_samples_per_s": RESNET["batch"] / (median_ms / 1e3),
+          "fit_s": fit_s,
+          "fit_samples_per_s": steps * RESNET["batch"] / fit_s,
+          "batch_bytes": RESNET["batch"] * (RESNET["crop"] ** 2 * 3 + 4),
+          "data_pipeline_stats": pipe_stats,
+          "max_memory_allocated_bytes": peak,
+          "evaluate_loss": ev["loss"], "restored_loss": ev2["loss"],
+          "restored_from": os.path.basename(restored),
+          "predict_shape": list(logits.shape), "card": card,
+          "setup_s": setup_s, "write_data_s": write_s})
+    return est, pipe, median_ms
+
+
+def _launching_ops(prof):
+    """For each correlation id of a kernel launch or copy, the names of the
+    CPU ops around the runtime call that issued it, innermost first."""
+    stacks = {}
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CPU or not evt.id
+                or not evt.name.startswith("cu")):
+            continue
+        names, parent = [], evt.cpu_parent
+        while parent is not None:
+            names.append(parent.name)
+            parent = parent.cpu_parent
+        stacks[evt.id] = names
+    return stacks
+
+
+def _resnet_op_class(name, ops):
+    """The class of a device event of a ResNet step from the CPU ops that
+    launched it: the optimizer, else the op (conv, BatchNorm, max-pool,
+    anything else elementwise) and whether autograd's backward ran it."""
+    if "memcpy" in name or "htod" in name:
+        return "h2d_copy"
+    ops = " ".join(ops).lower()
+    if "optimizer.step" in ops:
+        return "sgd"
+    side = "backward" if "backward" in ops else "forward"
+    for op, cls in (("convolution", "conv"), ("batch_norm", "batch_norm"),
+                    ("max_pool", "max_pool")):
+        if op in ops:
+            return f"{cls}_{side}"
+    return f"elementwise_{side}"
+
+
+def resnet_step_flops(module, crop, batch):
+    """The FLOPs of a ResNet training step from its conv and Dense shapes,
+    2 a multiply-add: the forward, every weight gradient, and every input
+    gradient but the stem's (its input is the batch)."""
+    from analytics_zoo_tpu_torch.models.image.resnet import Conv
+    macs = []
+
+    def conv(m, inputs, out):
+        macs.append((out[0].numel() * m.weight[0].numel(),
+                     m is module.conv_init))
+
+    hooks = [m.register_forward_hook(conv) for m in module.modules()
+             if isinstance(m, Conv)]
+    hooks.append(module.head.register_forward_hook(
+        lambda m, i, o: macs.append((m.weight.numel(), False))))
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            module(torch.zeros(1, crop, crop, 3, dtype=torch.uint8,
+                               device=module.head.weight.device))
+    finally:
+        module.train(was_training)
+        for h in hooks:
+            h.remove()
+    fwd = 2.0 * sum(m for m, _ in macs)
+    bwd = fwd + 2.0 * sum(m for m, stem in macs if not stem)
+    return {"forward_flops_per_image": fwd, "layers": len(macs),
+            "step_flops": (fwd + bwd) * batch}
+
+
+def resnet_profile_phase(est, pipe, card, train_ms):
+    """Where a ResNet-50 training step spends device time: torch.profiler
+    over RESNET_PROFILE_STEPS steps fed by the prefetching pipeline after
+    a warm step; kernel time by class, from the CPU op that launched each
+    kernel, the top kernels,
+    the idle share, the MFU of the fit's median step against the bf16
+    peak, and the rate of the host pipeline alone over one epoch."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = est.engine
+    batches = pipe.epoch(prefetch=True)
+    try:
+        eng.train_batch(next(batches))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(RESNET_PROFILE_STEPS):
+                eng.train_batch(next(batches))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        batches.close()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        fail("the profiler saw no device time in the ResNet steps")
+    stacks = _launching_ops(prof)
+    by_op, by_kernel, unattributed = {}, {}, 0
+    for evt in dev_events:
+        ms = evt.time_range.elapsed_us() / 1e3 / RESNET_PROFILE_STEPS
+        ops = stacks.get(evt.id)
+        if ops is None:
+            unattributed += 1
+            cls = "unattributed"
+        else:
+            cls = _resnet_op_class(evt.name.lower(), ops)
+        by_op[cls] = by_op.get(cls, 0.0) + ms
+        tot, n = by_kernel.get(evt.name, (0.0, 0))
+        by_kernel[evt.name] = (tot + ms, n + 1)
+    busy = _busy_ms(dev_events) / RESNET_PROFILE_STEPS
+    flops = resnet_step_flops(est.module, RESNET["crop"], RESNET["batch"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:24]
+    # the host pipeline alone: one epoch through the pump, with no step
+    # to wait for, against the step's rate
+    t0 = time.perf_counter()
+    fed = sum(1 for _ in pipe.epoch(prefetch=True))
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    emit({"phase": "resnet_profile", "batch": RESNET["batch"],
+          "steps_profiled": RESNET_PROFILE_STEPS,
+          "wall_ms_per_step": wall_ms / RESNET_PROFILE_STEPS,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy * RESNET_PROFILE_STEPS / wall_ms,
+          "device_ms_by_class_per_step": by_op,
+          "device_events_per_step": len(dev_events) / RESNET_PROFILE_STEPS,
+          "device_events_unattributed": unattributed,
+          "top_kernels_ms_per_step": [
+              {"name": k[:160], "ms": v[0],
+               "launches": v[1] / RESNET_PROFILE_STEPS} for k, v in top],
+          **flops,
+          "bound_ms": flops["step_flops"] / PEAK_BF16 * 1e3,
+          "fit_step_ms_median": train_ms,
+          "mfu": flops["step_flops"] / (train_ms / 1e3) / PEAK_BF16,
+          "busy_mfu": flops["step_flops"] / (busy / 1e3) / PEAK_BF16,
+          "pipeline": pipe.stats.snapshot(),
+          "pipeline_alone": {
+              "batches": fed, "s": feed_s, "batches_per_s": fed / feed_s,
+              "MBps": fed * RESNET["batch"] * (RESNET["crop"] ** 2 * 3 + 4)
+              / feed_s / 1e6,
+              "steps_per_s_of_fit": 1e3 / train_ms},
+          "card": card})
+
+
+class _Switches:
+    """Records, in call order, each ReLU's mask (output > 0) and each
+    max-pool's argmax in a ResNet run, tagged with the block running (its
+    input's mask too, on the first step); given another run's records, it
+    imposes them instead: a ReLU keeps the elements that run kept, a
+    max-pool takes the elements that run took. The two are the only
+    switches of the network, so two runs with the same switches compute
+    the same smooth function of the weights."""
+
+    def __init__(self, module, impose=None):
+        self.module, self.impose = module, impose
+        self.relu, self.pool, self.block_in = [], [], {}
+        self.identity = {name for name in module.block_names
+                         if not getattr(module, name).project}
+        self.step, self.block = 0, "stem"
+        self._next_relu = self._next_pool = 0
+
+    def _relu(self, x, inplace=False):
+        mask = (x > 0).cpu()
+        self.relu.append((self.step, self.block, mask))
+        if self.impose is None:
+            return self.inner_relu(x)
+        step, block, want = self.impose.relu[self._next_relu]
+        self._next_relu += 1
+        assert (step, block) == (self.step, self.block), "switch order"
+        return x * want.to(x.device, x.dtype)
+
+    def _max_pool(self, x, kernel_size, stride, padding):
+        if self.impose is None:
+            out, idx = self.inner_pool(x, kernel_size, stride, padding,
+                                       return_indices=True)
+            self.pool.append(idx.cpu())
+            return out
+        idx = self.impose.pool[self._next_pool].to(x.device)
+        self._next_pool += 1
+        out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    def __enter__(self):
+        f = torch.nn.functional
+        self.inner_relu, self.inner_pool = f.relu, f.max_pool2d
+        f.relu, f.max_pool2d = self._relu, self._max_pool
+        self.hooks = []
+        for name in self.module.block_names:
+            block = getattr(self.module, name)
+            self.hooks.append(block.register_forward_pre_hook(
+                partial(self._enter_block, name)))
+            self.hooks.append(block.register_forward_hook(
+                lambda *_: setattr(self, "block", "stem")))
+        return self
+
+    def _enter_block(self, name, module, inputs):
+        self.block = name
+        if self.step == 0:
+            self.block_in[name] = (inputs[0] > 0).cpu()
+
+    def __exit__(self, *exc):
+        f = torch.nn.functional
+        f.relu, f.max_pool2d = self.inner_relu, self.inner_pool
+        for h in self.hooks:
+            h.remove()
+        if exc[0] is None and self.impose is not None:
+            assert (self._next_relu, self._next_pool) == (
+                len(self.impose.relu), len(self.impose.pool)), "switch count"
+
+
+def _relu_flips(run, ref):
+    """The first step's ReLU outputs that are zero in one run and not in
+    the other: by call, summed, and distinct by block. An identity block's
+    output ReLU passes on the flips its input carries (a block's last
+    BatchNorm starts at scale 0, so its output is its input at the first
+    step); a flip is distinct unless it sits where the block's input
+    already differed."""
+    calls, distinct = 0, {}
+    last = {}
+    for i, (step, block, _) in enumerate(ref.relu):
+        if step == 0:
+            last[block] = i
+    for i, ((step, block, mask), (_, _, want)) in enumerate(
+            zip(run.relu, ref.relu)):
+        if step != 0:
+            break
+        flips = mask != want
+        calls += int(flips.sum())
+        if block in ref.identity and last[block] == i:
+            flips &= run.block_in[block] == ref.block_in[block]
+        distinct[block] = distinct.get(block, 0) + int(flips.sum())
+    return {"summed_over_calls": calls,
+            "distinct": sum(distinct.values()),
+            "distinct_by_block": {k: v for k, v in distinct.items() if v}}
+
+
+def _resnet_two_steps(dtype, dev, imgs, labels, impose=None):
+    """Two ResNet-50 training steps from the seeded weights on ``dev``:
+    the losses, the first step's gradients and the BatchNorm statistics
+    after the second step, on the CPU, and the run's switches (ReLU masks
+    and max-pool choices, imposed from ``impose`` when given)."""
+    from analytics_zoo_tpu_torch.orca.learn.utils import Batch
+    est = _resnet_estimator(5, dev, dtype=dtype, lr=0.01)
+    eng = est.engine
+    eng.build()
+    losses, grads = [], None
+    with _Switches(est.module, impose) as switches:
+        for step in range(2):
+            switches.step = step
+            losses.append(float(eng.train_batch(Batch(
+                x=(imgs[step],), y=(labels[step],), w=None))))
+            if step == 0:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in est.module.named_parameters()}
+    stats = {n: b.detach().cpu().clone()
+             for n, b in est.module.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return losses, grads, stats, switches
+
+
+def _resnet_param_class(name, grad):
+    if name.startswith("head."):
+        return "head"
+    return "conv" if grad.dim() == 4 else "batch_norm"
+
+
+def resnet_vs_cpu_phase(card):
+    """Two ResNet-50 training steps at crop 224 and batch RESNET_CPU_BATCH
+    from the same weights and batches on the card and on the CPU, in f32
+    (TF32 off) and in bf16 compute: losses, first-step gradients (the
+    largest error of each class of parameter, relative to each
+    parameter's largest gradient) and the BatchNorm statistics after the
+    second step, held as TOL_RESNET says; each dtype's limits are shown to
+    reject the other dtype's compute on the card. The ReLU outputs that
+    are zero on one side only are counted. The witness: the card's f32
+    steps again with the CPU's ReLU masks and max-pool choices imposed,
+    held to TOL_RESNET["float32_switches_imposed"]."""
+    rng = np.random.RandomState(8)
+    n, crop = RESNET_CPU_BATCH, RESNET["crop"]
+    imgs = rng.randint(0, 256, (2, n, crop, crop, 3)).astype(np.uint8)
+    labels = rng.randint(0, RESNET["classes"], (2, n)).astype(np.int32)
+    t0 = time.perf_counter()
+    runs = {(dtype, where): _resnet_two_steps(dtype, where, imgs, labels)
+            for dtype in (torch.float32, torch.bfloat16)
+            for where in ("cpu", "cuda")}
+    runs[("float32_switches_imposed", "cuda")] = _resnet_two_steps(
+        torch.float32, "cuda", imgs, labels,
+        impose=runs[(torch.float32, "cpu")][3])
+    run_s = time.perf_counter() - t0
+
+    def readings(card_run, cpu_run):
+        (l_a, g_a, s_a, _), (l_b, g_b, s_b, _) = card_run, cpu_run
+        out = {"loss": max(abs(a - b) / abs(b) for a, b in zip(l_a, l_b)),
+               "stats": max(_rel_err(s_a[k], s_b[k]) for k in s_b)}
+        for name in g_b:
+            cls = "grad_" + _resnet_param_class(name, g_b[name])
+            out[cls] = max(out.get(cls, 0.0), _rel_err(g_a[name], g_b[name]))
+        return out
+
+    result, failed = {}, []
+    for key, card_key, dtype, other in (
+            ("float32", torch.float32, torch.float32, torch.bfloat16),
+            ("float32_switches_imposed", "float32_switches_imposed",
+             torch.float32, torch.bfloat16),
+            ("bfloat16", torch.bfloat16, torch.bfloat16, torch.float32)):
+        limits = TOL_RESNET[key]
+        card_run = runs[(card_key, "cuda")]
+        cpu_run = runs[(dtype, "cpu")]
+        got = readings(card_run, cpu_run)
+        # the control: the card in the other dtype against this CPU run
+        control = readings(runs[(other, "cuda")], cpu_run)
+        rejected = all(control[k] > limits[k] for k in limits
+                       if k != "loss")
+        ok = (all(got[k] <= limits[k] for k in limits) and rejected
+              and all(map(math.isfinite, card_run[0])))
+        result[key] = {"loss_card": card_run[0], "loss_cpu": cpu_run[0],
+                       "readings": got, "limits": limits,
+                       "control": control, "control_rejected": rejected,
+                       "relu_flips": _relu_flips(card_run[3], cpu_run[3]),
+                       "relu_outputs_first_step": sum(
+                           m.numel() for step, _, m in cpu_run[3].relu
+                           if step == 0),
+                       "ok": ok}
+        if not ok:
+            failed.append(key)
+    emit({"phase": "resnet_vs_cpu", "batch": n, "crop": crop, "steps": 2,
+          "optimizer": "SGD(lr=0.01, momentum=0.9)", **result,
+          "run_s": run_s, "card": card})
+    if failed:
+        fail(f"ResNet training on the card disagrees with the CPU "
+             f"({', '.join(failed)})")
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -1225,6 +1742,15 @@ def main():
     del ncf, pairs, ratings
     ncf_vs_cpu_phase(card)
     embed_bwd_phase(card)
+    root = tempfile.mkdtemp(prefix="resnet-")
+    try:
+        est, pipe, step_ms = resnet_train_phase(card, root)
+        resnet_profile_phase(est, pipe, card, step_ms)
+        pipe.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del est, pipe
+    resnet_vs_cpu_phase(card)
     kernels_line(errs, bwd_errs, serve_launches, train_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -165,3 +165,25 @@ def test_onehot_backward_allocates_no_one_hot(monkeypatch):
     assert calls == []
     np.testing.assert_array_equal(table.grad.sum(1).numpy()[[1, 2, 49]],
                                   [4.0, 8.0, 4.0])
+
+
+@pytest.mark.parametrize("rows,cols", [(1000, 16), (16, 1000)])
+def test_mxuembed_init_std_matches_flax(rows, cols):
+    """Fault R3: the port drew N(0, 1/num_embeddings); flax's
+    ``variance_scaling(1, fan_in, normal, out_axis=0)`` takes fan_in =
+    features on a 2-D table. Eight tables a side (128,000 draws): the
+    port's std within 3 % of flax's, and the old formula misses."""
+    from analytics_zoo_tpu.ops.embedding import MXUEmbed as JMXUEmbed
+    module = JMXUEmbed(rows, cols)
+    ids = jnp.zeros((1,), jnp.int32)
+    want = np.concatenate([np.asarray(module.init(
+        jax.random.PRNGKey(k), ids)["params"]["embedding"]).ravel()
+        for k in range(8)])
+    torch.manual_seed(0)
+    got = np.concatenate([temb.MXUEmbed(rows, cols).embedding.detach()
+                          .numpy().ravel() for _ in range(8)])
+    assert got.size == want.size == 128_000
+    assert abs(got.std() / want.std() - 1) <= 0.03
+    assert abs(got.mean()) <= 0.03 * want.std()
+    old = 1 / np.sqrt(rows)                     # the formula before R3
+    assert abs(old / want.std() - 1) > 0.03

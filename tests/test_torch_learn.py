@@ -173,7 +173,7 @@ def test_convert_optimizer_forms():
 @pytest.mark.parametrize("make", [
     lambda: topt.Adagrad(), lambda: topt.RMSprop(), lambda: topt.Ftrl(),
     lambda: topt.convert_optimizer("adamax"),
-    lambda: tsched.Poly(0.5, 100), lambda: tsched.Warmup(0.1),
+    lambda: tsched.Exponential(100, 0.5), lambda: tsched.Step(10, 0.1),
     lambda: topt.Adam(decay=0.1),
 ])
 def test_not_ported_raise(make):

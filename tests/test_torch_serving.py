@@ -109,7 +109,10 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "ckpt", "ckpt.format", "ckpt.store", "ckpt.stats", "ckpt.plane",
     "native", "native.runtime", "native.transfer", "native.infeed",
     "utils", "utils.crypto", "orca.learn.prologue", "interop",
-    "ops.embedding", "orca.learn.estimator", "orca.learn.utils")]
+    "ops.embedding", "orca.learn.estimator", "orca.learn.utils",
+    "models.common.initializers", "models.image", "models.image.resnet",
+    "orca.data", "orca.data.image", "orca.data.image.imagenet",
+    "orca.learn.optimizers.schedule")]
 
 
 def test_port_imports_no_jax():
