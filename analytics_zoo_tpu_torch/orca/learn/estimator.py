@@ -26,9 +26,11 @@ Planes, as in the JAX estimator:
 * **prologue**: ``prologue=`` (or config ``prologue``) runs a
   ``BatchPrologue`` at the start of every step.
 
-Every step runs on its own (``fuse`` is always 1). Not ported yet:
-preemption handling, tensorboard, ``profile=<trace dir>`` and XShards or
-pandas inputs.
+``fit``, ``evaluate`` and ``predict`` take the inputs of
+``orca/learn/utils.data_to_iterator``: arrays, XShards with
+``feature_cols``/``label_cols`` and creator functions. Every step runs on
+its own (``fuse`` is always 1). Not ported yet: preemption handling,
+tensorboard and ``profile=<trace dir>``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 
 from ...common.context import resolve_device
 from ...native.infeed import PipelineStats
+from ..data.shard import HostXShards
 from . import utils as learn_utils
 from .engine import TrainEngine
 from .losses import convert_loss
@@ -234,8 +237,8 @@ class TPUEstimator:
             checkpoint_trigger: Optional[Trigger] = None,
             steps_per_epoch: Optional[int] = None, shuffle: bool = True,
             verbose: bool = True, callbacks=None, profile: bool = False,
-            max_failure_retries: Optional[int] = None
-            ) -> List[Dict[str, float]]:
+            max_failure_retries: Optional[int] = None,
+            initial_epoch: int = 0) -> List[Dict[str, float]]:
         """Train for ``epochs`` epochs (or ``steps_per_epoch`` steps each).
         ``profile=True`` adds per-step times to each epoch's stats: the
         host's wait for each batch, and each step's time (``step_ms``) from
@@ -246,12 +249,20 @@ class TPUEstimator:
         checkpoints; with a trigger or ``max_failure_retries`` (default 5)
         a failing epoch is retried from the latest checkpoint, as in the
         JAX estimator. ``fit`` returns only once every queued checkpoint is
-        durable."""
+        durable.
+
+        ``initial_epoch`` offsets the shuffle's epoch counter, as in the JAX
+        estimator: a run resumed from a checkpoint with it draws the batch
+        order of the uninterrupted run's later epochs."""
         if isinstance(profile, str):
             raise NotImplementedError("profile=<trace dir> is not ported "
                                       "yet; profile=True is")
         it = self._iterator(data, batch_size, feature_cols, label_cols,
                             shuffle)
+        if initial_epoch:
+            for counter in ("_epoch", "_epoch_idx"):
+                if hasattr(it, counter):
+                    setattr(it, counter, int(initial_epoch))
         _draw_sample(it)
         self.engine.build()
         trigger = (Trigger.convert_trigger(checkpoint_trigger)
@@ -396,9 +407,11 @@ class TPUEstimator:
     # --- predict ------------------------------------------------------------
     def predict(self, data, batch_size: int = 32, feature_cols=None) -> Any:
         """An ndarray (a tuple of them for a module with several outputs),
-        one row per input row: the padded tail rows are dropped."""
-        shard = learn_utils.xshards_from_arrays(data, feature_cols, None)
-        it = learn_utils.BatchIterator(shard, batch_size, pad_tail=True,
+        one row per input row: the padded tail rows are dropped. For
+        XShards input, the XShards with each partition's rows under
+        ``"prediction"``, as in the JAX estimator."""
+        shards = learn_utils.xshards_from_arrays(data, feature_cols, None)
+        it = learn_utils.BatchIterator(shards, batch_size, pad_tail=True,
                                        device=self.device,
                                        stats=self._pipeline_stats)
         outs = []
@@ -412,9 +425,21 @@ class TPUEstimator:
             host = tuple(p.cpu().numpy()[keep] for p in preds)
             outs.append(host if multi else host[0])
         if isinstance(outs[0], tuple):
-            return tuple(np.concatenate([o[i] for o in outs])
-                         for i in range(len(outs[0])))
-        return np.concatenate(outs)
+            result = tuple(np.concatenate([o[i] for o in outs])
+                           for i in range(len(outs[0])))
+        else:
+            result = np.concatenate(outs)
+        if not isinstance(data, HostXShards):
+            return result
+        # cut the predictions back into the input's partitions
+        parts, off = [], 0
+        for part in shards.collect():
+            n = len(part["x"][0])
+            parts.append(tuple(r[off:off + n] for r in result)
+                         if isinstance(result, tuple)
+                         else result[off:off + n])
+            off += n
+        return learn_utils.update_predict_xshards(data, HostXShards(parts))
 
     # --- persistence --------------------------------------------------------
     def get_model(self) -> Dict[str, torch.Tensor]:

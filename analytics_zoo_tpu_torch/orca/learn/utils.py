@@ -1,7 +1,16 @@
 """Input pipeline (counterpart of ``analytics_zoo_tpu/orca/learn/utils.py``)
 for one process and one device: user data (a dict ``{"x", "y"}``, an
-``(x, y)`` tuple, bare features or a creator function) becomes a
-:class:`BatchIterator` of padded global batches.
+``(x, y)`` tuple, bare features, XShards of numpy dicts or of pandas
+DataFrames with ``feature_cols``/``label_cols``, or a creator function)
+becomes a :class:`BatchIterator` of padded global batches.
+
+As in the JAX package, every input is first normalised to XShards of
+``{"x": tuple, "y": tuple}`` partitions (:func:`xshards_from_arrays`), and
+each leaf becomes a :class:`~..data.chunked.ChunkedArray` over the
+partitions (:func:`chunk_shards`): batches are gathered straight out of the
+partitions, and the dataset is never merged into one copy. Row order is
+the partitions' concatenation order, so the batch stream over XShards is
+bit-identical to the stream over the concatenated arrays.
 
 The batch stream follows the JAX package's: ``batch_size`` is the global
 batch, the ragged tail is padded with row 0 and masked by a per-row weight
@@ -19,13 +28,15 @@ stream ahead of the step (``native/infeed.py``, ``native/transfer.py``).
 ``prefetch=False`` gathers and copies inline. Both deliver the same
 batches in the same order.
 
-Not ported yet: XShards and pandas inputs, and fused (stacked)
-superbatches.
+pandas is imported by none of this: a DataFrame can only reach these
+functions once its caller has imported pandas. Not ported yet: fused
+(stacked) superbatches.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -38,6 +49,9 @@ from ...native import runtime
 from ...native import transfer as xfer
 from ...native.infeed import (_MAX_DEPTH, InfeedPump, PipelineStats,
                               _default_workers)
+from ...utils import nest
+from ..data.chunked import ChunkedArray, as_chunked
+from ..data.shard import HostXShards
 
 
 @dataclass
@@ -89,32 +103,106 @@ def _as_tuple(v) -> Tuple:
     return (v,)
 
 
-def xshards_from_arrays(data: Any, feature_cols=None, label_cols=None
-                        ) -> Dict[str, Tuple[np.ndarray, ...]]:
-    """Normalise a dict ``{"x", "y"}``, an ``(x, y)`` tuple or bare
-    features into one shard ``{"x": tuple, "y": tuple}`` of numpy arrays
-    (the JAX package returns XShards of such dicts; with one process there
-    is one shard)."""
-    if feature_cols is not None or label_cols is not None:
-        raise NotImplementedError("feature_cols/label_cols select columns "
-                                  "of XShards or DataFrames, which are not "
-                                  "ported yet")
+def _is_dataframe(obj) -> bool:
+    """Whether ``obj`` is a pandas DataFrame, without importing pandas: an
+    object can only be one once its caller has imported pandas."""
+    pd = sys.modules.get("pandas")
+    return pd is not None and isinstance(obj, pd.DataFrame)
+
+
+def xshards_from_arrays(data: Any, feature_cols=None, label_cols=None,
+                        num_shards: Optional[int] = None) -> HostXShards:
+    """Normalise any supported input into XShards of ``{"x": tuple, "y":
+    tuple}`` partitions: XShards and DataFrames through
+    :func:`normalize_xshards`, a dict ``{"x", "y"}``, an ``(x, y)`` tuple
+    or bare features into one partition (or ``num_shards`` even ones)."""
+    if isinstance(data, HostXShards):
+        return normalize_xshards(data, feature_cols, label_cols)
+    if _is_dataframe(data):
+        return normalize_xshards(HostXShards([data]), feature_cols,
+                                 label_cols)
     if isinstance(data, dict):
         x, y = data.get("x"), data.get("y")
     elif isinstance(data, tuple) and len(data) == 2:
         x, y = data
-    elif isinstance(data, np.ndarray) or (
-            isinstance(data, (list, tuple))
-            and all(isinstance(a, np.ndarray) for a in data)):
-        x, y = data, None
     else:
-        raise NotImplementedError(
-            f"input of type {type(data).__name__} is not ported yet (dicts, "
-            "(x, y) tuples and arrays are)")
-    shard = {"x": tuple(np.asarray(a) for a in _as_tuple(x))}
+        x, y = data, None
+    shard = {"x": _as_tuple(x)}
     if y is not None:
-        shard["y"] = tuple(np.asarray(a) for a in _as_tuple(y))
-    return shard
+        shard["y"] = _as_tuple(y)
+    n = num_shards or 1
+    flat_len = len(nest.flatten(shard)[0])
+    n = min(n, max(flat_len, 1))
+    if n == 1:
+        # one partition: the caller's arrays as they are, no index copy
+        return HostXShards([{k: tuple(np.asarray(a) for a in v)
+                             for k, v in shard.items()}])
+    return HostXShards([{k: tuple(np.asarray(a)[idx] for a in v)
+                         for k, v in shard.items()}
+                        for idx in np.array_split(np.arange(flat_len), n)])
+
+
+def normalize_xshards(shards: HostXShards, feature_cols=None,
+                      label_cols=None) -> HostXShards:
+    """Map pandas-DataFrame or column-dict partitions to ``{"x": tuple,
+    "y": tuple}`` ones, selecting ``feature_cols`` (and ``label_cols``);
+    partitions that already hold ``"x"`` keep it."""
+    first = shards.collect()[0] if shards.num_partitions() else None
+
+    def from_df(df):
+        out = {"x": tuple(df[c].to_numpy() for c in feature_cols)}
+        if label_cols:
+            out["y"] = tuple(df[c].to_numpy() for c in label_cols)
+        return out
+
+    def from_dict(d):
+        if "x" in d:
+            out = {"x": _as_tuple(d["x"])}
+            if "y" in d and d["y"] is not None:
+                out["y"] = _as_tuple(d["y"])
+            return out
+        if not feature_cols:
+            raise ValueError(
+                "shards are column dicts; pass feature_cols (and label_cols)"
+                f" — available keys: {sorted(d.keys())}")
+        out = {"x": tuple(np.asarray(d[c]) for c in feature_cols)}
+        if label_cols:
+            out["y"] = tuple(np.asarray(d[c]) for c in label_cols)
+        return out
+
+    if _is_dataframe(first):
+        if not feature_cols:
+            raise ValueError(
+                "feature_cols is required for pandas-DataFrame XShards")
+        return shards.transform_shard(from_df)
+    if isinstance(first, dict):
+        return shards.transform_shard(from_dict)
+    raise ValueError(f"unsupported shard element type {type(first)}")
+
+
+def chunk_shards(shards: HostXShards
+                 ) -> Dict[str, Tuple[ChunkedArray, ...]]:
+    """Each leaf of the ``{"x", "y"}`` partitions as a
+    :class:`ChunkedArray` over the partitions' arrays, in partition order:
+    no merged copy of the dataset is built."""
+    parts = shards.collect()
+    if not parts:
+        raise ValueError("empty XShards")
+    return {k: tuple(ChunkedArray([p[k][i] for p in parts])
+                     for i in range(len(parts[0][k])))
+            for k in parts[0]}
+
+
+def update_predict_xshards(xshards: HostXShards,
+                           pred_shards: HostXShards) -> HostXShards:
+    """Each partition of ``xshards`` with its predictions under
+    ``"prediction"``."""
+    def merge(pair):
+        d, pred = pair
+        out = dict(d) if isinstance(d, dict) else {"x": d}
+        out["prediction"] = pred
+        return out
+    return xshards.zip(pred_shards).transform_shard(merge)
 
 
 class DeviceFeed:
@@ -200,18 +288,22 @@ class DeviceFeed:
 
 
 class BatchIterator(DeviceFeed):
-    """Epoch iterator over host arrays producing padded global batches on
-    ``device`` (host numpy batches when ``device`` is None)."""
+    """Epoch iterator over host data producing padded global batches on
+    ``device`` (host numpy batches when ``device`` is None). ``data`` is
+    ``{"x": tuple, "y": tuple}`` of arrays or :class:`ChunkedArray` leaves,
+    or XShards of such partitions (chunked here)."""
 
-    def __init__(self, data: Dict[str, Tuple[np.ndarray, ...]],
-                 batch_size: int, shuffle: bool = False, seed: int = 0,
-                 pad_tail: bool = True, device: Optional[torch.device] = None,
+    def __init__(self, data, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, pad_tail: bool = True,
+                 device: Optional[torch.device] = None,
                  stats: Optional[PipelineStats] = None,
                  prefetch_depth: int = 2,
                  prefetch_workers: Optional[int] = None):
         super().__init__(device, stats, prefetch_depth, prefetch_workers)
-        self.x = tuple(np.ascontiguousarray(a) for a in data["x"])
-        self.y = (tuple(np.ascontiguousarray(a) for a in data["y"])
+        if isinstance(data, HostXShards):
+            data = chunk_shards(data)
+        self.x = tuple(as_chunked(a) for a in data["x"])
+        self.y = (tuple(as_chunked(a) for a in data["y"])
                   if data.get("y") is not None else None)
         self.n = len(self.x[0])
         self.local_bs = self.global_bs = int(batch_size)
@@ -226,17 +318,19 @@ class BatchIterator(DeviceFeed):
         self._epoch = 0
 
     # --- assembly -----------------------------------------------------------
-    def _gather_leaf(self, a: np.ndarray, idx: np.ndarray, staged: bool):
+    def _gather_leaf(self, a: ChunkedArray, idx: np.ndarray, staged: bool):
+        """The rows ``idx`` of a leaf, narrowed to its wire dtype: into a
+        pinned ring slot when ``staged`` on the card, else a host array.
+        A contiguous run comes back from the chunks as a view, and a wide
+        leaf gathers before it narrows: both are copied into the slot."""
         pool = self._staging_pool() if staged else None
         if pool is None:
-            return xfer.narrow_wire(runtime.gather_rows(a, idx))
+            return xfer.narrow_wire(a.gather(idx))
         wire = xfer.narrows_to(a.dtype) or a.dtype
         slot = pool.acquire((len(idx),) + a.shape[1:], wire, tag=id(a))
-        if wire == a.dtype:
-            runtime.gather_rows(a, idx, out=slot.array)
-        else:       # a wide leaf: gather, then narrow into the pinned slot
-            np.copyto(slot.array, runtime.gather_rows(a, idx),
-                      casting="unsafe")
+        got = a.gather(idx, out=slot.array if wire == a.dtype else None)
+        if got is not slot.array:
+            np.copyto(slot.array, got, casting="unsafe")
         return slot
 
     def _assemble_batch(self, idx: np.ndarray, w: Optional[np.ndarray],
@@ -295,7 +389,9 @@ def data_to_iterator(data: Any, batch_size: int, feature_cols=None,
     already (a :class:`DeviceFeed`: a ``BatchIterator``, an
     ``ImageNetPipeline`` streaming from disk) passes through, given the
     device it lacks and ``stats``; a callable is a
-    ``data_creator(config, batch_size)``. Config keys ``infeed_depth`` and
+    ``data_creator(config, batch_size)``; anything else goes through
+    :func:`xshards_from_arrays` into a ``BatchIterator`` that gathers
+    straight out of the partitions. Config keys ``infeed_depth`` and
     ``infeed_workers`` size the pump."""
     if isinstance(data, DeviceFeed):
         if data.device is None:

@@ -49,6 +49,25 @@ images, seeded random weights), it
   and in bf16, and the f32 steps again with the CPU's ReLU masks and
   max-pool choices imposed on the card (``resnet_vs_cpu``).
 
+Then, with a user's torch ResNet-50 (torchvision's v1.5 layout written in
+plain torch, ``TorchResNet`` below: 25,557,032 parameters, 1000 classes,
+224 px, batch 256, f32 with TF32 off; 1,024 seeded synthetic images;
+torch.optim.SGD with momentum 0.9 and nn.CrossEntropyLoss), BASELINE
+config #2's entry point, it
+
+* trains 2 epochs of 4 steps through ``Estimator.from_torch`` and a
+  ``data_creator`` returning a DataLoader, with an every-epoch checkpoint,
+  then restores it into a fresh estimator whose ``evaluate`` loss and
+  ``predict`` logits must equal the trained one's (``torch_estimator_train``);
+* profiles training steps: device time by class, idle share, step FLOPs
+  against the f32 peak (``torch_estimator_profile``);
+* takes 2 steps on the card and on the CPU from the same weights
+  (``torch_estimator_vs_cpu``);
+* trains an epoch through a ``TrainingOperator`` subclass
+  (``torch_operator_fit``), and an epoch over 4-partition XShards whose
+  batch stream equals the concatenated arrays' and whose ``predict``
+  returns XShards (``torch_xshards_fit``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -183,6 +202,34 @@ TOL_RESNET = {
         "grad_conv": TOL_STEP_GRAD, "grad_batch_norm": TOL_STEP_GRAD},
     "bfloat16": {"loss": 1e-3, "stats": 2.5e-3, "grad_head": 8e-3,
                  "grad_conv": 0.24, "grad_batch_norm": 0.2}}
+
+# A user's torch ResNet-50 through Estimator.from_torch, BASELINE config #2's
+# entry point ("Orca PyTorch Estimator: ResNet-50"): torchvision's layout in
+# plain torch (TorchResNet below), 1000 classes, 224 px, batch 256, f32
+# (TF32 off, the port's policy), torch.optim.SGD with momentum 0.9 and
+# nn.CrossEntropyLoss; 1,024 seeded synthetic images from a DataLoader, 2
+# epochs of 4 steps.
+TORCH_RESNET = dict(images=1024, size=224, classes=1000, batch=256,
+                    epochs=2)
+TORCH_RESNET_PARAMS = 25557032
+TORCH_PROFILE_STEPS = 3
+TORCH_CPU_BATCH = 8                 # card vs CPU steps: full widths
+TORCH_XSHARDS_IMAGES, TORCH_XSHARDS_BATCH = 512, 128
+# Card vs CPU from_torch steps (f32, TF32 off on both): a step's loss
+# (relative) and the BatchNorm statistics after it (the largest error of a
+# buffer relative to its largest value), at resnet_vs_cpu's f32 limits;
+# the control, the card's steps with the two batches swapped, must miss
+# both. From torch's default init (every BatchNorm scale 1) the f32
+# backward of this network is ill-conditioned, so the second step's loss
+# and statistics move with f32 rounding itself: only the first step is
+# held there, and the second is reported beside the CPU's own f32-vs-f64
+# reading (readings on an H100 80GB HBM3 at 700 W, card vs CPU / CPU f32
+# vs f64: loss 1.1e-3 / 1.7e-4, statistics 3.8e-2 / 3.4e-2). With each
+# bottleneck's last BatchNorm scale at 0 (torchvision's
+# zero_init_residual) the backward is well-conditioned and the second
+# step is held (reading: loss 6.5e-8, statistics 3.9e-6; swapped control
+# 4.6e-3, 2.1e-2).
+TOL_TORCH_RESNET = {"loss": TOL_STEP_LOSS, "stats": 1e-4}
 
 
 def emit(obj):
@@ -1514,6 +1561,479 @@ def resnet_vs_cpu_phase(card):
              f"({', '.join(failed)})")
 
 
+# --- a user's torch ResNet-50 through Estimator.from_torch --------------------
+
+class Bottleneck(torch.nn.Module):
+    """torchvision's ResNet v1.5 bottleneck, as a user writes it without
+    torchvision: 1x1, 3x3 (the stride), 1x1 to 4x the width, with a
+    downsample Sequential (1x1 conv and BatchNorm) where the shape
+    changes."""
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * self.expansion, 1,
+                               bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * self.expansion)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class TorchResNet(torch.nn.Module):
+    """torchvision's ResNet in plain torch with torch's default init: a
+    7x7/2 stem (padding 3) and a 3x3/2 max-pool (padding 1), four stages of
+    bottlenecks at widths ``width`` x (1, 2, 4, 8), AdaptiveAvgPool2d,
+    ``torch.flatten(x, 1)`` and a Linear head. ``TorchResNet()`` is
+    ResNet-50 with 1000 classes (25,557,032 parameters)."""
+
+    def __init__(self, layers=(3, 4, 6, 3), width=64, num_classes=1000):
+        super().__init__()
+        nn = torch.nn
+        self.inplanes = width
+        self.conv1 = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(width, layers[0])
+        self.layer2 = self._make_layer(width * 2, layers[1], stride=2)
+        self.layer3 = self._make_layer(width * 4, layers[2], stride=2)
+        self.layer4 = self._make_layer(width * 8, layers[3], stride=2)
+        self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+        self.fc = nn.Linear(width * 8 * Bottleneck.expansion, num_classes)
+
+    def _make_layer(self, planes, blocks, stride=1):
+        nn = torch.nn
+        downsample = None
+        if stride != 1 or self.inplanes != planes * Bottleneck.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2d(self.inplanes, planes * Bottleneck.expansion, 1,
+                          stride=stride, bias=False),
+                nn.BatchNorm2d(planes * Bottleneck.expansion))
+        layers = [Bottleneck(self.inplanes, planes, stride, downsample)]
+        self.inplanes = planes * Bottleneck.expansion
+        layers += [Bottleneck(self.inplanes, planes)
+                   for _ in range(1, blocks)]
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        x = torch.flatten(self.avgpool(x), 1)
+        return self.fc(x)
+
+
+def _torch_images(n, seed):
+    """``n`` seeded images as a user's pipeline hands them to the model:
+    uint8 pixels normalised by the ImageNet mean and std, f32 NCHW."""
+    from analytics_zoo_tpu_torch.orca.data.image import (IMAGENET_MEAN,
+                                                         IMAGENET_STD)
+    rng = np.random.RandomState(seed)
+    size = TORCH_RESNET["size"]
+    x = rng.randint(0, 256, (n, 3, size, size), dtype=np.uint8)
+    x = x.astype(np.float32)
+    x -= np.asarray(IMAGENET_MEAN, np.float32)[:, None, None]
+    x /= np.asarray(IMAGENET_STD, np.float32)[:, None, None]
+    y = rng.randint(0, TORCH_RESNET["classes"], n).astype(np.int64)
+    return x, y
+
+
+def _sgd_creator(model, config):
+    return torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
+                           weight_decay=1e-4)
+
+
+def _torch_estimator(model_creator=None, **kwargs):
+    """``Estimator.from_torch`` with the phase's creators: the user's
+    ResNet-50, SGD (lr 0.1, momentum 0.9, weight decay 1e-4) and
+    ``nn.CrossEntropyLoss`` as a class."""
+    from analytics_zoo_tpu_torch.orca.learn.pytorch import Estimator
+    return Estimator.from_torch(
+        model_creator=model_creator or (lambda config: TorchResNet()),
+        optimizer_creator=_sgd_creator,
+        loss_creator=torch.nn.CrossEntropyLoss, **kwargs)
+
+
+def torch_estimator_train_phase(card, root):
+    """BASELINE config #2's entry point: a user's torch ResNet-50 through
+    ``Estimator.from_torch`` and a ``data_creator`` returning an unshuffled
+    DataLoader of 1,024 seeded images; ``fit`` 2 epochs of 4 steps at batch
+    256 (shuffled by the native xoshiro order) with an every-epoch
+    checkpoint; a fresh estimator restores the last checkpoint and
+    evaluates to the trained loss exactly, and predicts the same logits."""
+    from torch.utils.data import DataLoader, TensorDataset
+
+    from analytics_zoo_tpu_torch.orca.learn.trigger import EveryEpoch
+    cfg = TORCH_RESNET
+    t0 = time.perf_counter()
+    x, y = _torch_images(cfg["images"], 0)
+    dataset = TensorDataset(torch.from_numpy(x), torch.from_numpy(y))
+
+    def data_creator(config, batch_size):
+        return DataLoader(dataset, batch_size=batch_size, shuffle=False)
+    model_dir = os.path.join(root, "ckpt")
+    est = _torch_estimator(model_dir=model_dir)
+    n_params = sum(p.numel() for p in est.module.parameters())
+    if n_params != TORCH_RESNET_PARAMS:
+        fail(f"the user's ResNet-50 has {n_params} parameters, not "
+             f"{TORCH_RESNET_PARAMS}")
+    setup_s = time.perf_counter() - t0
+    tf32 = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    stats = est.fit(data_creator, epochs=cfg["epochs"],
+                    batch_size=cfg["batch"], checkpoint_trigger=EveryEpoch(),
+                    profile=True, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    peak = torch.cuda.max_memory_allocated()
+    pipe_stats = est.data_pipeline_stats()
+    step_ms = [t for s in stats for t in s["profile"]["step_ms"]]
+    losses = [s["train_loss"] for s in stats]
+    steps = cfg["epochs"] * cfg["images"] // cfg["batch"]
+    if len(step_ms) != steps or not all(map(math.isfinite, losses)):
+        fail(f"from_torch fit: {len(step_ms)} steps (expected {steps}), "
+             f"losses {losses}")
+    ckpt = pipe_stats["ckpt"]
+    if ckpt["saves"] < cfg["epochs"] or ckpt["errors"]:
+        fail(f"from_torch checkpoints: {ckpt}")
+    ev = est.evaluate(data_creator, batch_size=cfg["batch"], verbose=False)
+    fresh = _torch_estimator()
+    restored = fresh.load_checkpoint(model_dir)
+    ev2 = fresh.evaluate(data_creator, batch_size=cfg["batch"],
+                         verbose=False)
+    if not math.isfinite(ev["loss"]) or ev2["loss"] != ev["loss"]:
+        fail(f"from_torch restored loss {ev2['loss']} != trained "
+             f"{ev['loss']}")
+    logits = fresh.predict(data_creator, batch_size=cfg["batch"])
+    want = est.predict(data_creator, batch_size=cfg["batch"])
+    if logits.shape != (cfg["images"], cfg["classes"]) or \
+            not np.isfinite(logits).all() or \
+            not np.array_equal(logits, want):
+        fail(f"from_torch predict: {logits.shape}, finite "
+             f"{np.isfinite(logits).all()}, equal to the trained "
+             f"estimator's {np.array_equal(logits, want)}")
+    est.shutdown()
+    fresh.shutdown()
+    del fresh, dataset
+    median_ms = statistics.median(step_ms[1:])
+    emit({"phase": "torch_estimator_train",
+          "model": "a user's torch ResNet-50 (torchvision v1.5 layout, "
+                   "plain torch, torch's default init), 1000 classes",
+          "entry": "Estimator.from_torch(model_creator, optimizer_creator, "
+                   "loss_creator=nn.CrossEntropyLoss).fit(data_creator -> "
+                   "DataLoader)",
+          "parameters": n_params, "compute_dtype": "float32",
+          "tf32": tf32, "config": cfg, "steps": steps,
+          "optimizer": "torch.optim.SGD(lr=0.1, momentum=0.9, "
+                       "weight_decay=1e-4)",
+          "train_loss": losses, "step_ms": step_ms,
+          "first_step_ms": step_ms[0],
+          "step_ms_median_after_first": median_ms,
+          "step_ms_min_after_first": min(step_ms[1:]),
+          "step_ms_max_after_first": max(step_ms[1:]),
+          "steady_samples_per_s": cfg["batch"] / (median_ms / 1e3),
+          "fit_s": fit_s, "fit_samples_per_s": steps * cfg["batch"] / fit_s,
+          "batch_bytes": cfg["batch"] * (3 * cfg["size"] ** 2 * 4 + 4),
+          "data_pipeline_stats": pipe_stats,
+          "max_memory_allocated_bytes": peak,
+          "evaluate_loss": ev["loss"], "restored_loss": ev2["loss"],
+          "restored_from": os.path.basename(restored),
+          "predict_shape": list(logits.shape), "card": card,
+          "setup_s": setup_s})
+    return est, x, y, median_ms
+
+
+def torch_resnet_step_flops(module, size, batch):
+    """The FLOPs of a training step of a torch ResNet from its conv and
+    Linear shapes, 2 a multiply-add: the forward, every weight gradient,
+    and every input gradient but the stem's (its input is the batch)."""
+    macs = []
+
+    def count(m, inputs, out):
+        macs.append((out.numel() * m.weight[0].numel(), m is module.conv1))
+
+    hooks = [m.register_forward_hook(count) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            module(torch.zeros(1, 3, size, size,
+                               device=module.fc.weight.device))
+    finally:
+        module.train(was_training)
+        for h in hooks:
+            h.remove()
+    fwd = 2.0 * sum(m for m, _ in macs)
+    bwd = fwd + 2.0 * sum(m for m, stem in macs if not stem)
+    return {"forward_flops_per_image": fwd, "layers": len(macs),
+            "step_flops": (fwd + bwd) * batch}
+
+
+def _torch_op_class(name, ops):
+    """``_resnet_op_class``, with the head's GEMMs (addmm, mm) apart from
+    the elementwise passes."""
+    cls = _resnet_op_class(name, ops)
+    joined = " ".join(ops).lower()
+    if cls.startswith("elementwise") and ("addmm" in joined
+                                          or "aten::mm" in joined):
+        return cls.replace("elementwise", "linear")
+    return cls
+
+
+def torch_estimator_profile_phase(est, x, y, card, train_ms):
+    """Where a step of the user's f32 ResNet-50 spends device time:
+    torch.profiler over TORCH_PROFILE_STEPS steps fed through the infeed
+    pump after a warm step; kernel time by class (from the CPU op that
+    launched each kernel), the idle share, and the step's FLOPs against the
+    H100's f32 peak outside the tensor cores (TF32 is off). The epoch runs
+    over the images twice (two chunks of the same arrays, no copy), so the
+    pump still assembles and copies batches inside the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.orca.data.chunked import ChunkedArray
+    from analytics_zoo_tpu_torch.orca.learn import utils as learn_utils
+    cfg = TORCH_RESNET
+    eng = est.engine
+    it = learn_utils.BatchIterator(
+        {"x": (ChunkedArray([x, x]),), "y": (ChunkedArray([y, y]),)},
+        cfg["batch"], shuffle=True, device=est.device)
+    batches = it.epoch(prefetch=True)
+    try:
+        eng.train_batch(next(batches))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TORCH_PROFILE_STEPS):
+                eng.train_batch(next(batches))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        batches.close()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        fail("the profiler saw no device time in the from_torch steps")
+    stacks = _launching_ops(prof)
+    by_op, by_kernel, unattributed = {}, {}, 0
+    for evt in dev_events:
+        ms = evt.time_range.elapsed_us() / 1e3 / TORCH_PROFILE_STEPS
+        ops = stacks.get(evt.id)
+        if ops is None:
+            unattributed += 1
+            cls = "unattributed"
+        else:
+            cls = _torch_op_class(evt.name.lower(), ops)
+        by_op[cls] = by_op.get(cls, 0.0) + ms
+        tot, n = by_kernel.get(evt.name, (0.0, 0))
+        by_kernel[evt.name] = (tot + ms, n + 1)
+    busy = _busy_ms(dev_events) / TORCH_PROFILE_STEPS
+    flops = torch_resnet_step_flops(est.module, cfg["size"], cfg["batch"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:24]
+    emit({"phase": "torch_estimator_profile", "batch": cfg["batch"],
+          "steps_profiled": TORCH_PROFILE_STEPS,
+          "wall_ms_per_step": wall_ms / TORCH_PROFILE_STEPS,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy * TORCH_PROFILE_STEPS / wall_ms,
+          "device_ms_by_class_per_step": by_op,
+          "device_events_per_step": len(dev_events) / TORCH_PROFILE_STEPS,
+          "device_events_unattributed": unattributed,
+          "top_kernels_ms_per_step": [
+              {"name": k[:160], "ms": v[0],
+               "launches": v[1] / TORCH_PROFILE_STEPS} for k, v in top],
+          **flops,
+          "fp32_peak_flops": PEAK_F32_CUDA_CORES,
+          "fp32_peak": "H100 SXM dense FP32 outside the tensor cores "
+                       "(TF32 is off)",
+          "bound_ms": flops["step_flops"] / PEAK_F32_CUDA_CORES * 1e3,
+          "fit_step_ms_median": train_ms,
+          "fp32_share": flops["step_flops"] / (train_ms / 1e3)
+          / PEAK_F32_CUDA_CORES,
+          "busy_fp32_share": flops["step_flops"] / (busy / 1e3)
+          / PEAK_F32_CUDA_CORES,
+          "pipeline": it.stats.snapshot(), "card": card})
+
+
+def _torch_two_steps(dev, state, imgs, labels, order=(0, 1),
+                     dtype=torch.float32):
+    """Two steps of the phase's creators on ``dev`` from ``state``, the
+    batches taken in ``order``: each step's loss, and the BatchNorm
+    statistics after each step, on the CPU in float64."""
+    from analytics_zoo_tpu_torch.orca.learn.utils import Batch
+
+    def model_creator(config):
+        model = TorchResNet()
+        model.load_state_dict(state)
+        return model.to(dtype)
+    est = _torch_estimator(model_creator, device=dev)
+    eng = est.engine
+    eng.build()
+    host = np.float64 if dtype == torch.float64 else np.float32
+    losses, stats = [], []
+    for s in order:
+        losses.append(float(eng.train_batch(Batch(
+            x=(imgs[s].astype(host),), y=(labels[s],), w=None))))
+        stats.append({n: b.detach().double().cpu().clone()
+                      for n, b in est.module.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))})
+    return losses, stats
+
+
+def torch_estimator_vs_cpu_phase(card):
+    """Two steps of the phase's creators at batch TORCH_CPU_BATCH, 224 px,
+    from one state_dict and the same batches on the card and on the CPU,
+    f32 with TF32 off on both: losses and BatchNorm statistics held to
+    TOL_TORCH_RESNET, each against a control (the card with the two
+    batches swapped) that must miss every limit. From torch's default init
+    (the train phase's) the first step is held; the second step's
+    readings are reported beside the CPU's own f32-vs-f64 readings. From
+    the same weights with every bottleneck's last BatchNorm scale at 0
+    (torchvision's ``zero_init_residual``) the second step is held."""
+    torch.manual_seed(3)
+    default = TorchResNet().state_dict()
+    zero_res = {k: (torch.zeros_like(v) if k.endswith("bn3.weight") else v)
+                for k, v in default.items()}
+    x, y = _torch_images(2 * TORCH_CPU_BATCH, 9)
+    imgs = x.reshape((2, TORCH_CPU_BATCH) + x.shape[1:])
+    labels = y.reshape(2, TORCH_CPU_BATCH)
+    t0 = time.perf_counter()
+    result, failed = {}, []
+    for name, state, held in (("default_init", default, 0),
+                              ("zero_init_residual", zero_res, 1)):
+        card_run = _torch_two_steps("cuda", state, imgs, labels)
+        cpu_run = _torch_two_steps("cpu", state, imgs, labels)
+        control_run = _torch_two_steps("cuda", state, imgs, labels, (1, 0))
+
+        def readings(run, step, ref=cpu_run):
+            (l_a, s_a), (l_b, s_b) = run, ref
+            return {"loss": abs(l_a[step] - l_b[step]) / abs(l_b[step]),
+                    "stats": max(_rel_err(s_a[step][k], s_b[step][k])
+                                 for k in s_b[step])}
+        limits = TOL_TORCH_RESNET
+        got, control = readings(card_run, held), readings(control_run, held)
+        rejected = all(control[k] > limits[k] for k in limits)
+        ok = (all(got[k] <= limits[k] for k in limits) and rejected
+              and all(map(math.isfinite, card_run[0])))
+        result[name] = {"held_step": held + 1, "loss_card": card_run[0],
+                        "loss_cpu": cpu_run[0], "readings": got,
+                        "limits": limits, "control_readings": control,
+                        "control_rejected": rejected, "ok": ok}
+        if held == 0:
+            f64_run = _torch_two_steps("cpu", state, imgs, labels,
+                                       dtype=torch.float64)
+            result[name]["step2_reported"] = {
+                "card_vs_cpu": readings(card_run, 1),
+                "cpu_float32_vs_float64": readings(cpu_run, 1, f64_run),
+                "control": readings(control_run, 1)}
+        if not ok:
+            failed.append(name)
+    emit({"phase": "torch_estimator_vs_cpu", "batch": TORCH_CPU_BATCH,
+          "size": TORCH_RESNET["size"], "steps": 2,
+          "optimizer": "torch.optim.SGD(lr=0.1, momentum=0.9, "
+                       "weight_decay=1e-4)",
+          "control": "the card with the two batches swapped", **result,
+          "run_s": time.perf_counter() - t0, "card": card})
+    if failed:
+        fail(f"from_torch steps on the card disagree with the CPU "
+             f"({', '.join(failed)})")
+
+
+def torch_operator_fit_phase(x, y, card):
+    """One epoch of 4 steps at batch 256 through ``training_operator_cls``:
+    a TrainingOperator subclass whose ``train_batch`` calls ``super()`` and
+    records each batch's index and real rows."""
+    from torch.utils.data import DataLoader, TensorDataset
+
+    from analytics_zoo_tpu_torch.orca.learn.pytorch import TrainingOperator
+
+    class Recording(TrainingOperator):
+        def setup(self, config):
+            self.calls = []
+
+        def train_batch(self, batch, batch_info):
+            out = super().train_batch(batch, batch_info)
+            self.calls.append((batch_info["batch_idx"], out["num_samples"],
+                               out["train_loss"]))
+            return out
+    dataset = TensorDataset(torch.from_numpy(x), torch.from_numpy(y))
+    est = _torch_estimator(training_operator_cls=Recording)
+    t0 = time.perf_counter()
+    stats = est.fit(lambda config, batch_size: DataLoader(
+        dataset, batch_size=batch_size, shuffle=False), epochs=1,
+        batch_size=TORCH_RESNET["batch"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    calls = est._operator.calls
+    if [c[0] for c in calls] != [0, 1, 2, 3] or \
+            sum(c[1] for c in calls) != len(x) or \
+            not all(math.isfinite(c[2]) for c in calls):
+        fail(f"training operator: {calls}")
+    emit({"phase": "torch_operator_fit", "calls": calls, "stats": stats,
+          "fit_s": fit_s, "card": card})
+
+
+def torch_xshards_fit_phase(x, y, card):
+    """XShards of 512 images in 4 round-robin partitions: the shuffled
+    batch stream over them equals the stream over their concatenation
+    (in partition order); ``fit`` 1 epoch at batch 128 on the card; and
+    ``predict`` returns XShards whose predictions equal those over the
+    concatenated arrays."""
+    from analytics_zoo_tpu_torch.orca.data import HostXShards, XShards
+    from analytics_zoo_tpu_torch.orca.learn import utils as learn_utils
+    n, batch = TORCH_XSHARDS_IMAGES, TORCH_XSHARDS_BATCH
+    shards = XShards.partition({"x": x[:n], "y": y[:n]}, num_shards=4)
+    parts = shards.collect()
+    cat = {k: np.concatenate([p[k] for p in parts]) for k in ("x", "y")}
+    t0 = time.perf_counter()
+    chunked = learn_utils.data_to_iterator(shards, batch, shuffle=True)
+    flat = learn_utils.data_to_iterator(cat, batch, shuffle=True)
+    compared = 0
+    for a, b in zip(chunked._host_batches(True), flat._host_batches(True)):
+        if not all(np.array_equal(u, v) for u, v in zip(a.leaves(),
+                                                        b.leaves())):
+            fail(f"XShards batch {compared} differs from the arrays' one")
+        compared += 1
+    if compared != n // batch:
+        fail(f"XShards stream: {compared} batches")
+    stream_s = time.perf_counter() - t0
+    est = _torch_estimator()
+    t0 = time.perf_counter()
+    stats = est.fit(shards, epochs=1, batch_size=batch, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    pred = est.predict(shards, batch_size=batch)
+    want = est.predict(cat["x"], batch_size=batch)
+    got = (np.concatenate([p["prediction"] for p in pred.collect()])
+           if isinstance(pred, HostXShards) else None)
+    if got is None or pred.num_partitions() != 4 or \
+            not np.array_equal(got, want) or \
+            not math.isfinite(stats[0]["train_loss"]):
+        fail("XShards predict differs from the arrays' predict, or the "
+             f"fit failed: {stats}")
+    emit({"phase": "torch_xshards_fit", "images": n, "partitions": 4,
+          "batch": batch, "batches_compared": compared,
+          "stream_s": stream_s, "stats": stats, "fit_s": fit_s,
+          "predict_rows": int(len(got)), "card": card})
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -1751,6 +2271,17 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     del est, pipe
     resnet_vs_cpu_phase(card)
+    root = tempfile.mkdtemp(prefix="from-torch-")
+    try:
+        est, x, y, step_ms = torch_estimator_train_phase(card, root)
+        torch_estimator_profile_phase(est, x, y, card, step_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del est
+    torch_estimator_vs_cpu_phase(card)
+    torch_operator_fit_phase(x, y, card)
+    torch_xshards_fit_phase(x, y, card)
+    del x, y
     kernels_line(errs, bwd_errs, serve_launches, train_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
