@@ -121,6 +121,13 @@ def init_orca_context(cluster_mode: str = "local",
         return ctx
 
 
+def current_context() -> Optional[ClusterContext]:
+    """The active context, or None (never creates one)."""
+    if _current is None or _current._stopped:
+        return None
+    return _current
+
+
 def get_context() -> ClusterContext:
     """Return the active context, creating a local one on demand."""
     if _current is None or _current._stopped:

@@ -30,7 +30,20 @@ in exact arithmetic):
   parameter's ``momentum_buffer``;
 * a scheduled optimizer's ``ScaleByScheduleState.count`` (optax does not
   wrap a schedule in ``inject_hyperparams``) <-> the engine's step, which
-  the port's schedule reads.
+  the port's schedule reads;
+* the port's optax-formula optimizers (``orca/learn/optimizers``):
+  ``adagrad``'s (and the Ftrl fallback's) ``ScaleByRssState.
+  sum_of_squares`` -> ``sum``; ``rmsprop``'s ``ScaleByRmsState.nu`` ->
+  ``square_avg``; ``adamax``'s ``ScaleByAdamState`` ``mu``/``nu``/
+  ``count`` -> ``exp_avg``/``exp_inf``/``step``; ``adadelta``'s
+  ``ScaleByAdaDeltaState`` ``e_g``/``e_x`` -> ``square_avg``/
+  ``acc_delta``. These states exist from optax's init (the accumulator at
+  0.1, the others at 0), so they cross before the first step too.
+
+Free parameters named ``weight`` (the Keras ``Scale``, ``CMul``, ``Mul``
+and the autograd ``Parameter``) cannot be told from a Linear's weight by
+their name alone: :func:`state_dict_to_flax` given the module keeps the
+names a module lists in ``flax_free_params`` as they are.
 
 Moments follow their parameter's mapping (a Dense or Conv kernel's moments
 are transposed as it is). The optax side may be optax's own namedtuples or the
@@ -49,6 +62,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import is_lazy
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -114,18 +128,31 @@ def _tree_set(tree: Dict[str, Any], path: Sequence[str], key: str,
     node[key] = value
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+def _free_params(module: Optional[nn.Module]) -> set:
+    """The state_dict keys of the parameters ``module``'s submodules list
+    in ``flax_free_params``: kept under their own names."""
+    if module is None:
+        return set()
+    return {f"{prefix}.{p}" if prefix else p
+            for prefix, m in module.named_modules()
+            for p in getattr(m, "flax_free_params", ())}
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
+                       module: Optional[nn.Module] = None
                        ) -> Dict[str, Any]:
     """torch ``state_dict`` -> flax ``params`` tree of numpy arrays (the
     inverse of :func:`flax_to_state_dict`; BatchNorm buffers go to
-    :func:`state_dict_to_batch_stats`)."""
+    :func:`state_dict_to_batch_stats`). Given the ``module``, its free
+    parameters keep their names (see the module docstring)."""
+    free = _free_params(module)
     tree: Dict[str, Any] = {}
     for name, tensor in state_dict.items():
         *path, leaf_name = name.split(".")
         if leaf_name in _BUFFERS:
             continue
         arr = tensor.detach().cpu().numpy()
-        if leaf_name == "weight":
+        if leaf_name == "weight" and name not in free:
             if arr.ndim in _TO_FLAX:
                 leaf_name = "kernel"
                 arr = np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
@@ -156,15 +183,18 @@ def state_dict_to_batch_stats(state_dict: Mapping[str, torch.Tensor]
 def load_flax_params(module: nn.Module, variables: Mapping[str, Any]
                      ) -> nn.Module:
     """Copy a flax parameter tree, or a variables dict (with the
-    ``batch_stats`` of a module with BatchNorm), into ``module``. Raises on
-    a missing or extra key or a shape mismatch, naming every offender."""
+    ``batch_stats`` of a module with BatchNorm), into ``module``; a lazy
+    width takes the tree's. Raises on a missing or extra key or a shape
+    mismatch, naming every offender."""
     sd = flax_to_state_dict(variables)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
+    # a lazy width (the Keras layers') takes the loaded shape
     wrong = sorted(f"{k}: {tuple(sd[k].shape)} vs {tuple(own[k].shape)}"
                    for k in set(sd) & set(own)
-                   if tuple(sd[k].shape) != tuple(own[k].shape))
+                   if not is_lazy(own[k])
+                   and tuple(sd[k].shape) != tuple(own[k].shape))
     if missing or extra or wrong:
         raise ValueError(f"flax params do not fit {type(module).__name__}: "
                          f"missing {missing}, extra {extra}, "
@@ -196,12 +226,27 @@ def _by_name(flax_tree, param_names: Sequence[str]) -> List[torch.Tensor]:
     return [sd[n] for n in param_names]
 
 
+# optax state class -> (optax field, torch state key) of its moments, for
+# the states without a count (they exist from optax's init on)
+_MOMENTS = {
+    "ScaleByRssState": (("sum_of_squares", "sum"),),
+    "ScaleByRmsState": (("nu", "square_avg"),),
+    "ScaleByAdaDeltaState": (("e_g", "square_avg"), ("e_x", "acc_delta")),
+}
+
+
+def _adam_keys(is_adamax: bool):
+    return ("exp_avg", "exp_inf" if is_adamax else "exp_avg_sq")
+
+
 def optax_state_to_torch(opt_state, optimizer: torch.optim.Optimizer,
                          param_names: Sequence[str]) -> Dict[str, Any]:
-    """An optax state of Adam, AdamW or SGD -> a ``state_dict`` for
-    ``optimizer`` (built over the parameters ``param_names`` names, in
-    order). A state before the first step gives an empty ``state``, as
-    torch's own optimizers start."""
+    """An optax state of Adam, AdamW, SGD or one of the port's
+    optax-formula optimizers -> a ``state_dict`` for ``optimizer`` (built
+    over the parameters ``param_names`` names, in order). An Adam-type or
+    SGD state before the first step gives an empty ``state``, as torch's
+    own optimizers start."""
+    from .orca.learn.optimizers.optimizers_impl import AdamaxRule
     groups = copy.deepcopy(optimizer.state_dict()["param_groups"])
     inject = _find(opt_state, _INJECT)
     if inject is not None:
@@ -211,14 +256,21 @@ def optax_state_to_torch(opt_state, optimizer: torch.optim.Optimizer,
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     adam = _find(opt_state, ("ScaleByAdamState",))
     trace = _find(opt_state, ("TraceState",))
+    moments = _find(opt_state, tuple(_MOMENTS))
     if adam is not None:
         step = int(np.asarray(adam.count))
+        mu_key, nu_key = _adam_keys(isinstance(optimizer, AdamaxRule))
         if step > 0:
             mus = _by_name(adam.mu, param_names)
             nus = _by_name(adam.nu, param_names)
             for i, (mu, nu) in enumerate(zip(mus, nus)):
                 state[i] = {"step": torch.tensor(float(step)),
-                            "exp_avg": mu, "exp_avg_sq": nu}
+                            mu_key: mu, nu_key: nu}
+    elif moments is not None:
+        for field, key in _MOMENTS[type(moments).__name__]:
+            for i, t in enumerate(_by_name(getattr(moments, field),
+                                           param_names)):
+                state.setdefault(i, {})[key] = t
     elif trace is not None:
         counter = inject or _find(opt_state, _SCHEDULE)
         steps = int(np.asarray(counter.count)) if counter is not None else 1
@@ -235,7 +287,7 @@ def _to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
 
 def torch_state_to_optax(torch_state: Mapping[str, Any],
                          param_names: Sequence[str], template, step: int):
-    """A torch Adam/AdamW/SGD ``state_dict`` -> the optax state of
+    """A torch ``state_dict`` of an optimizer above -> the optax state of
     ``template`` (the JAX optimizer's state, e.g. ``tx.init(params)``),
     rebuilt with the template's own classes. ``step`` is the engine's
     step count (the injected state's ``count``)."""
@@ -252,10 +304,15 @@ def torch_state_to_optax(torch_state: Mapping[str, Any],
         if isinstance(node, tuple) and hasattr(node, "_fields"):
             if name == "ScaleByAdamState":
                 count = int(np.asarray(st[0]["step"])) if st else 0
+                mu_key, nu_key = _adam_keys(bool(st) and "exp_inf" in st[0])
                 return node._replace(
                     count=np.asarray(count, np.asarray(node.count).dtype),
-                    mu=moments("exp_avg", node.mu),
-                    nu=moments("exp_avg_sq", node.nu))
+                    mu=moments(mu_key, node.mu),
+                    nu=moments(nu_key, node.nu))
+            if name in _MOMENTS:
+                return node._replace(**{
+                    field: moments(key, getattr(node, field))
+                    for field, key in _MOMENTS[name]})
             if name in _SCHEDULE:
                 return node._replace(
                     count=np.asarray(step, np.asarray(node.count).dtype))

@@ -13,7 +13,8 @@ blocks stand in for flax's layers:
   s) - 1) * s + k - in, 0) split as lo = total // 2, hi = total - lo. A
   3x3 stride-2 conv over an even input is padded (0, 1), not (1, 1); such
   a pad goes through ``F.pad``, a symmetric one into the conv itself.
-* :class:`BatchNorm`, flax ``nn.BatchNorm``: it normalises with f32 batch
+* :class:`BatchNorm` (``models/common/batch_norm.py``), flax
+  ``nn.BatchNorm``: it normalises with f32 batch
   statistics (training) or the running ones (evaluation) and writes its
   output in the input's dtype; a train step updates ``running_mean`` and
   ``running_var`` with momentum 0.9 towards the batch mean and the
@@ -49,6 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...orca.data.image.imagenet import IMAGENET_MEAN, IMAGENET_STD
+from ..common.batch_norm import (BN_EPSILON, BN_MOMENTUM,  # noqa: F401
+                                 BatchNorm)
 from ..common.initializers import as_torch_dtype, lecun_normal_
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -103,42 +106,6 @@ class Conv(nn.Module):
         else:
             pads = self.padding
         return conv_nchw(x.to(self.dtype), self.weight, self.strides, pads)
-
-
-# flax nn.BatchNorm as the JAX ResNet builds it
-BN_MOMENTUM = 0.9
-BN_EPSILON = 1e-5
-
-
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=BN_MOMENTUM, epsilon=BN_EPSILON,
-    dtype=...)`` over the channel axis of a ``(B, C, H, W)`` tensor (see the
-    module docstring). The output keeps the input's dtype, which is flax's
-    ``dtype`` here: the convs before it already write ``compute_dtype``."""
-
-    def __init__(self, features: int, scale_init: float = 1.0):
-        super().__init__()
-        self.weight = nn.Parameter(torch.full((features,), float(scale_init)))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                BN_EPSILON)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, BN_EPSILON)
-        with torch.no_grad():
-            # the biased batch variance, from the 1/sqrt(var + eps) the
-            # normalisation used (f32)
-            var = invstd.float().reciprocal().square_().sub_(BN_EPSILON)
-            m = BN_MOMENTUM
-            self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var.clamp_min_(0.0),
-                                          alpha=1.0 - m)
-        return y
 
 
 class BottleneckBlock(nn.Module):

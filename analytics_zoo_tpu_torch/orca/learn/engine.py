@@ -17,16 +17,22 @@ engine's names and semantics:
 * ``_predict_step``: the module in ``eval()`` mode.
 
 The module's ``train()``/``eval()`` mode takes the place of the flax
-``train`` argument, and its buffers (BatchNorm's running statistics) that
-of the flax collections besides ``params``: a train step updates them in
-the forward, ``get_state``/``set_state`` carry them with the parameters,
-and the optimizer never sees them. ``build`` hands the engine's
-``torch.Generator`` to every ``Dropout`` of the module once; each train
-step reseeds it from ``seed`` and the step, so a step's masks are a
-function of both, as ``fold_in(PRNGKey(seed), step)`` makes them in JAX
-(the two generators give different bits). Parameters are initialised when the module is
-constructed; ``build`` moves nothing and re-initialises nothing, so weights
-a caller loaded (for example through ``interop``) are what trains.
+``train`` argument, and its buffers (BatchNorm's running statistics)
+that of the flax collections besides ``params``: a train step updates
+them in the forward, ``get_state``/``set_state`` carry them with the
+parameters, and the optimizer never sees them. ``build`` hands the
+engine's ``torch.Generator`` once to every layer of the module that draws
+random numbers in training (``DrawsRandom``: dropout, the Keras noise
+layers, ``RReLU``, ``GaussianSampler``); each train step reseeds it from
+``seed`` and the step, so a step's draws are a function of both, as
+``fold_in(PRNGKey(seed), step)`` makes them in JAX (the two generators
+give different bits). Parameters are initialised when the module is
+constructed; ``build`` moves nothing and re-initialises nothing, so
+weights a caller loaded (for example through ``interop``) are what
+trains. A width that waits for the first input (a lazy parameter, as the
+Keras layers' are) is materialised before ``build`` by
+:meth:`TrainEngine.materialize`: one sample row through the module in
+evaluation mode, as flax's init runs one, or by loading a state.
 
 A ``prologue`` (``orca/learn/prologue.BatchPrologue``) runs at the start
 of every train, eval and predict step, on the device. ``train_batch``
@@ -39,6 +45,7 @@ fsdp and compile-cache planes.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -46,11 +53,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...pipeline.api.keras.layers.self_attention import Dropout
+from ...pipeline.api.keras.layers.self_attention import DrawsRandom
 from .metrics import Metric
 from .utils import Batch
 
 _SEED_MIX = 0x9E3779B97F4A7C15      # odd 64-bit constant: seed and step mix
+
+
+def has_lazy_params(module: nn.Module) -> bool:
+    """Whether ``module`` still holds a parameter or buffer whose shape
+    waits for the first input."""
+    from torch.nn.parameter import is_lazy
+    return any(is_lazy(t) for t in itertools.chain(module.parameters(),
+                                                   module.buffers()))
 
 
 class TrainEngine:
@@ -114,14 +129,37 @@ class TrainEngine:
                 g.clamp_(self._clip_min, self._clip_max)
 
     # --- init ---------------------------------------------------------------
+    def materialize(self, batch: Optional[Batch] = None,
+                    state_dict: Optional[Dict[str, Any]] = None):
+        """Give every lazy width of the module its size, from a state dict
+        (loaded) or else from the first row of ``batch`` (run through the
+        module in evaluation mode, without gradients); a module without
+        lazy parameters is left untouched."""
+        if not has_lazy_params(self.module):
+            return
+        if state_dict is not None:
+            self.module.load_state_dict(_as_tensors(state_dict), strict=True)
+        elif batch is not None:
+            b = Batch(x=tuple(a[:1] for a in batch.x), y=None,
+                      w=None).to(self.device)
+            was_training = self.module.training
+            with torch.no_grad():
+                self._apply(self._pre_x(b.x), False)
+            self.module.train(was_training)
+
     def build(self):
         """Create the optimizer over the module's parameters and point
-        every dropout of the module at the engine's generator (once)."""
+        every layer that draws random numbers at the engine's generator
+        (once)."""
         if self.opt is not None:
             return
+        if has_lazy_params(self.module):
+            raise RuntimeError("the module has parameters whose width comes "
+                               "from the first input; fit, or load a "
+                               "state, before building the optimizer")
         self.opt = self.make_optimizer(list(self.module.parameters()))
         for m in self.module.modules():
-            if isinstance(m, Dropout):
+            if isinstance(m, DrawsRandom):
                 m.generator = self._gen
         self.step = 0
 
@@ -131,6 +169,9 @@ class TrainEngine:
         if self.prologue is None:
             return x, y
         return self.prologue(x, y)
+
+    def _pre_x(self, x):
+        return x if self.prologue is None else self.prologue.apply_x(x)
 
     def _apply(self, x, train: bool):
         self.module.train(train)
@@ -185,9 +226,7 @@ class TrainEngine:
 
     def _predict_step(self, x):
         with torch.no_grad():
-            if self.prologue is not None:
-                x = self.prologue.apply_x(x)
-            return self._apply(x, False)
+            return self._apply(self._pre_x(x), False)
 
     # --- public API ---------------------------------------------------------
     def train_batch(self, batch: Batch) -> torch.Tensor:

@@ -29,8 +29,19 @@ Planes, as in the JAX estimator:
 ``fit``, ``evaluate`` and ``predict`` take the inputs of
 ``orca/learn/utils.data_to_iterator``: arrays, XShards with
 ``feature_cols``/``label_cols`` and creator functions. Every step runs on
-its own (``fuse`` is always 1). Not ported yet: preemption handling,
-tensorboard and ``profile=<trace dir>``.
+its own (``fuse`` is always 1).
+
+**TensorBoard**: ``set_tensorboard(log_dir, app_name)`` writes each train
+step's loss as the scalar ``Loss`` (step: the iteration) under
+``<log_dir>/<app_name>/train`` at the end of each epoch, and each
+numeric validation result at the epoch's last iteration under
+``.../validation``, in the JAX package's events format
+(``utils/tensorboard.py``); ``get_train_summary(tag)`` and
+``get_validation_summary(tag)`` read them back as ``[(step, value)]``.
+
+``Estimator.from_keras`` builds a ``TPUEstimator`` from a module or a
+creator, as in the JAX package. Not ported yet: preemption handling and
+``profile=<trace dir>``.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -88,13 +99,49 @@ class _StepTimer:
 
 def _draw_sample(it):
     """Draw the first batch of an unshuffled inline epoch, as the JAX
-    estimator does to build its engine in ``fit`` and ``evaluate``. The
-    draw advances the iterator's epoch counter (a ``BatchIterator``'s
-    ``_epoch``, an ``ImageNetPipeline``'s ``_epoch_idx``) as it does there,
-    so epoch e of a fit shuffles and crops with seed + e + 1 in both."""
+    estimator does to build its engine in ``fit`` and ``evaluate``, and
+    return it. The draw advances the iterator's epoch counter (a
+    ``BatchIterator``'s ``_epoch``, an ``ImageNetPipeline``'s
+    ``_epoch_idx``) as it does there, so epoch e of a fit shuffles and
+    crops with seed + e + 1 in both."""
     gen = it.epoch(shuffle=False, prefetch=False)
-    next(gen, None)
+    sample = next(gen, None)
     gen.close()
+    return sample
+
+
+class Estimator:
+    """Factory namespace, as the JAX package's ``Estimator`` (``from_torch``
+    is in ``orca.learn.pytorch``)."""
+
+    @staticmethod
+    def from_keras(model_creator: Optional[Callable] = None, *,
+                   model: Optional[torch.nn.Module] = None,
+                   config: Optional[dict] = None, loss=None,
+                   optimizer="adam", metrics=None,
+                   model_dir: Optional[str] = None, backend: str = "gpu",
+                   workers_per_node: int = 1, seed: int = 0, prologue=None,
+                   device=None) -> "TPUEstimator":
+        """An estimator over ``model``, an ``nn.Module``, or over what
+        ``model_creator(config)`` returns: a module, or a tuple
+        ``(module, loss, optimizer)``. ``backend`` and
+        ``workers_per_node`` are accepted for source compatibility."""
+        module = model if model is not None else model_creator(config or {})
+        if isinstance(module, tuple):
+            module, loss, optimizer = module
+        if not isinstance(module, torch.nn.Module):
+            raise TypeError(f"from_keras takes a torch.nn.Module (a Keras "
+                            f"model's to_module()), not "
+                            f"{type(module).__name__}")
+        return TPUEstimator(module, loss=loss, optimizer=optimizer,
+                            metrics=metrics, model_dir=model_dir,
+                            config=config, seed=seed, device=device,
+                            prologue=prologue)
+
+    @staticmethod
+    def latest_checkpoint(model_dir: str) -> Optional[str]:
+        path, _ = learn_utils.find_latest_checkpoint(model_dir)
+        return path
 
 
 class TPUEstimator:
@@ -123,6 +170,9 @@ class TPUEstimator:
         self._trainer_state = TrainerState()
         self.train_stats: List[Dict[str, float]] = []
         self._ckpt_plane = None
+        self._tb_dir: Optional[str] = None
+        self._tb_train = None
+        self._tb_val = None
 
     @staticmethod
     def latest_checkpoint(model_dir: str) -> Optional[str]:
@@ -180,9 +230,16 @@ class TPUEstimator:
             path, state = plane.restore(step=step)
         except FileNotFoundError:
             raise FileNotFoundError(f"no checkpoint under {model_dir}")
-        self.engine.build()
-        if "extra_vars" in state:           # written by the JAX package
+        from_jax = "extra_vars" in state    # written by the JAX package
+        if from_jax:
             from ... import interop
+            params = interop.state_from_jax(state, self.module,
+                                            None)["params"]
+        else:
+            params = state["params"]
+        self.engine.materialize(state_dict=params)
+        self.engine.build()
+        if from_jax:
             state = interop.state_from_jax(state, self.module,
                                            self.engine.opt)
         self.engine.set_state(state)
@@ -222,6 +279,27 @@ class TPUEstimator:
     def clear_gradient_clipping(self):
         self.engine.clear_gradient_clipping()
         return self
+
+    # --- tensorboard --------------------------------------------------------
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        from ...utils.tensorboard import FileWriter
+        self._tb_dir = os.path.join(log_dir, app_name)
+        self._tb_train = FileWriter(os.path.join(self._tb_dir, "train"))
+        self._tb_val = FileWriter(os.path.join(self._tb_dir, "validation"))
+        return self
+
+    def _summary(self, writer, sub: str, tag: str):
+        from ...utils.tensorboard import read_scalars
+        if writer is None:
+            return []
+        writer.flush()
+        return read_scalars(os.path.join(self._tb_dir, sub)).get(tag, [])
+
+    def get_train_summary(self, tag: str = "Loss"):
+        return self._summary(self._tb_train, "train", tag)
+
+    def get_validation_summary(self, tag: str):
+        return self._summary(self._tb_val, "validation", tag)
 
     # --- fit ----------------------------------------------------------------
     def _iterator(self, data, batch_size, feature_cols, label_cols,
@@ -263,7 +341,7 @@ class TPUEstimator:
             for counter in ("_epoch", "_epoch_idx"):
                 if hasattr(it, counter):
                     setattr(it, counter, int(initial_epoch))
-        _draw_sample(it)
+        self.engine.materialize(_draw_sample(it))
         self.engine.build()
         trigger = (Trigger.convert_trigger(checkpoint_trigger)
                    if checkpoint_trigger else None)
@@ -322,6 +400,11 @@ class TPUEstimator:
                 stats.update({f"val_{k}": v for k, v in val.items()})
                 self._trainer_state.score = val.get(
                     next(iter(self.metrics), "loss"), val.get("loss"))
+                if self._tb_val is not None:
+                    for k, v in val.items():
+                        if isinstance(v, (int, float)):
+                            self._tb_val.add_scalar(
+                                k, float(v), self._trainer_state.iteration)
             if trigger and self.model_dir and trigger(self._trainer_state):
                 self.save_checkpoint(self.model_dir)
             if verbose:
@@ -362,6 +445,11 @@ class TPUEstimator:
             if close is not None:
                 close()                 # stops the pump's threads
         host_losses = torch.stack(losses).cpu().numpy()
+        if self._tb_train is not None:
+            first = self._trainer_state.iteration - len(host_losses) + 1
+            for i, lv in enumerate(host_losses):
+                self._tb_train.add_scalar("Loss", float(lv), first + i)
+            self._tb_train.flush()
         mean_loss = float(np.mean(host_losses))
         self._trainer_state.epoch += 1
         self._trainer_state.epoch_finished = True

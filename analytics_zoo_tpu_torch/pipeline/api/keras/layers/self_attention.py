@@ -33,15 +33,20 @@ from .....ops.attention import flash_attention, mha_reference
 from .....ops.embedding import MXUEmbed
 
 
-class Dropout(nn.Module):
-    """``nn.Dropout`` that can draw from a given generator. Attribute
+class DrawsRandom:
+    """Mixin of a layer that draws random numbers in training. Attribute
     ``generator``: a ``torch.Generator`` on the input's device, or None
-    for torch's global one."""
+    for torch's global one; the training engine sets it to its own."""
+
+    generator: Optional[torch.Generator] = None
+
+
+class Dropout(DrawsRandom, nn.Module):
+    """``nn.Dropout`` that can draw from a given generator."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
-        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:

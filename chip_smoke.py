@@ -68,6 +68,27 @@ config #2's entry point, it
   batch stream equals the concatenated arrays' and whose ``predict``
   returns XShards (``torch_xshards_fit``).
 
+Then, with the fraud-detection MLP of BASELINE #3 (bench.py's
+``bench_fraud_mlp``: 29 features, Keras Dense 256 -> 128 -> 64 -> 1,
+binary cross-entropy, Adam, f32, batch 16,384; the fraud example's
+synthetic data, 100,000 rows, 2 % fraud), it
+
+* trains 3 epochs through ``NNEstimator(Sequential(...).to_module(),
+  "binary_crossentropy").fit(df)`` and scores the 10 % holdout through
+  ``NNModel.transform``, whose AUC is held against the JAX package's and
+  the port's CPU readings (``fraud_nnframes_train``; no flash kernel
+  launches on this path, and the ``kernels`` line says so);
+* profiles training steps: device time by class, idle share, step FLOPs
+  (``fraud_profile``);
+* takes 2 steps on the card and on the CPU from the same weights
+  (``fraud_vs_cpu``);
+* trains the same MLP through the Keras API over ``read_csv`` XShards of 4
+  CSV files in Kaggle's schema, with TensorBoard summaries, ``predict`` on
+  XShards and a ``save_weights``/``load_weights`` round trip
+  (``keras_csv_fit``);
+* takes 3 steps with each of Adagrad, Adadelta, Adamax, RMSprop and Ftrl
+  on the card and on the CPU (``optimizers_vs_cpu``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -230,6 +251,51 @@ TORCH_XSHARDS_IMAGES, TORCH_XSHARDS_BATCH = 512, 128
 # step is held (reading: loss 6.5e-8, statistics 3.9e-6; swapped control
 # 4.6e-3, 2.1e-2).
 TOL_TORCH_RESNET = {"loss": TOL_STEP_LOSS, "stats": 1e-4}
+
+# The fraud-detection MLP of BASELINE #3 (bench.py's bench_fraud_mlp):
+# 29 float features, Keras Dense 256 -> 128 -> 64 -> 1 (ReLU, sigmoid),
+# binary cross-entropy, NNEstimator's default Adam, f32 (TF32 off), batch
+# 16,384, 3 epochs; the data is examples/nnframes/fraud_detection_mlp.py's
+# synthetic_fraud (100,000 rows from seed 0, 2 % fraud, +1.5 on five
+# features) with its 10 % holdout.
+FRAUD = dict(rows=100_000, features=29, fraud_rate=0.02, seed=0,
+             widths=(256, 128, 64), batch=16384, epochs=3, holdout=0.1)
+FRAUD_PROFILE_STEPS = 3
+# Holdout AUC (the example's rank formula; 196 fraud rows of 10,000, where
+# an untrained ranking reads 0.5 +- 0.021), held two ways, with readings
+# of scripts/fraud_auc_reference.py on the CPU. The JAX package's run
+# (NNEstimator, seed 0) reads FRAUD_AUC_JAX. It starts from other random
+# weights (JAX's PRNG is not torch's), and after 18 Adam steps the AUC
+# still spreads with the initial weights: JAX seeds 0-4 read 0.671-0.781,
+# port seeds 0-9 read 0.598-0.844. So the card's AUC must be at least
+# FRAUD_AUC_JAX - FRAUD_AUC_MARGIN. The port's run on the CPU from the
+# card's initial weights (torch seed 0, drawn on the CPU) reads
+# FRAUD_AUC_PORT_CPU; the card's must be within FRAUD_AUC_SAME of it.
+FRAUD_AUC_JAX = 0.7692835702212342
+FRAUD_AUC_PORT_CPU = 0.7506801680280435
+FRAUD_AUC_MARGIN = 0.15
+FRAUD_AUC_SAME = 0.02
+# Card vs CPU fraud steps (f32, TF32 off on both): a step's loss
+# (relative) and gradients (the largest error of a parameter's gradient
+# relative to its largest entry; sums over 16,384 rows in another order).
+TOL_FRAUD = {"loss": TOL_STEP_LOSS, "grad": 1e-4}
+# Card vs CPU optimizer steps: the losses, and the parameter updates
+# relative to each parameter's largest update (see _update_readings), at
+# 1e-3. Two effects put updates above the gradients' own error (3.9e-7 of
+# the largest in fraud_vs_cpu). From the second step the two sides'
+# parameters differ in their last bits, so a ReLU whose pre-activation
+# sits within that of 0 in one of 16,384 rows may flip, and that row's
+# share of the gradient (~1/16,384 = 6e-5) changes. And Adadelta's first
+# update, g * sqrt(eps) / sqrt(0.1 g^2 + eps) (eps 1e-10, lr 1), is g
+# itself for |g| << 1e-4 but saturates at sqrt(10 eps) = 3.2e-5, so a
+# small gradient's error passes whole while the largest update stays
+# 3.2e-5 (~2.5e-4 of it at gradients of ~0.02). Readings on an H100 80GB
+# HBM3 at 700 W: Adagrad 8.3e-5, Adadelta 2.4e-4, Adamax 7.5e-6, RMSprop
+# 7.6e-6, Ftrl 4.0e-5; the swapped control 0.15 or more.
+TOL_OPTIMIZERS = {"loss": TOL_STEP_LOSS, "update": 1e-3}
+# The Keras API over read_csv: 65,536 rows of Kaggle's creditcard.csv
+# schema in 4 files, batch 16,384, 2 epochs.
+KERAS_CSV = dict(rows=65536, files=4, batch=16384, epochs=2)
 
 
 def emit(obj):
@@ -823,6 +889,16 @@ def ncf_train_phase(card):
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
+def _device_events(prof):
+    """The profiler's device events: kernels and copies. A
+    ``record_function`` range (the optimizer's ``Optimizer.step#...``, the
+    fraud phase's ``loss``) also appears on the device timeline as a user
+    annotation spanning the kernels inside it; it is not device work."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _busy_ms(events):
     """The union of the device events' intervals, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -867,8 +943,7 @@ def ncf_profile_phase(model, pairs, ratings, card):
         batches.close()
         by_class = {"embedding_index": 0.0, "gemm": 0.0, "adam": 0.0,
                     "h2d_copy": 0.0, "other": 0.0}
-        dev_events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_events = _device_events(prof)
         for evt in dev_events:
             name = evt.name.lower()
             if "memcpy" in name or "htod" in name:
@@ -1321,8 +1396,7 @@ def resnet_profile_phase(est, pipe, card, train_ms):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         batches.close()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = _device_events(prof)
     if not dev_events:
         fail("the profiler saw no device time in the ResNet steps")
     stacks = _launching_ops(prof)
@@ -1828,8 +1902,7 @@ def torch_estimator_profile_phase(est, x, y, card, train_ms):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         batches.close()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = _device_events(prof)
     if not dev_events:
         fail("the profiler saw no device time in the from_torch steps")
     stacks = _launching_ops(prof)
@@ -2034,6 +2107,482 @@ def torch_xshards_fit_phase(x, y, card):
           "predict_rows": int(len(got)), "card": card})
 
 
+# --- the fraud-detection MLP (BASELINE #3) through NNFrames and Keras -------
+
+def synthetic_fraud(n, n_features, fraud_rate, seed):
+    """examples/nnframes/fraud_detection_mlp.py's synthetic_fraud."""
+    rng = np.random.RandomState(seed)
+    y = (rng.rand(n) < fraud_rate).astype(np.float32)
+    x = rng.randn(n, n_features).astype(np.float32)
+    x[y == 1, :5] += 1.5          # separable signal on 5 features
+    return x, y
+
+
+def _fraud_frames():
+    """The example's DataFrame and its 10 % holdout (random_state 0)."""
+    import pandas as pd
+    cfg = FRAUD
+    x, y = synthetic_fraud(cfg["rows"], cfg["features"], cfg["fraud_rate"],
+                           cfg["seed"])
+    df = pd.DataFrame({"features": list(x), "label": y})
+    holdout = df.sample(frac=cfg["holdout"], random_state=0)
+    return df.drop(holdout.index), holdout
+
+
+def _fraud_net(seed=0, widths=None, head=None):
+    """The fraud MLP with the port's Keras API, its initial weights drawn
+    on the CPU from ``torch.manual_seed(seed)`` (a lazy width would
+    otherwise draw on the device it first sees). ``head``: layers put
+    before the Dense stack."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    widths = widths or FRAUD["widths"]
+    torch.manual_seed(seed)
+    net = Sequential(list(head or []) +
+                     [Dense(w, activation="relu") for w in widths] +
+                     [Dense(1, activation="sigmoid")])
+    module = net.to_module()
+    with torch.no_grad():
+        if head is None:
+            module(torch.zeros(1, FRAUD["features"]))
+        else:
+            module(*[torch.zeros(1) for _ in range(FRAUD["features"])])
+    return net
+
+
+def _on_card(module):
+    return all(p.device.type == "cuda" for p in module.parameters())
+
+
+def rank_auc(pred, label):
+    """The example's rank-based AUC."""
+    order = np.argsort(pred)
+    rank = np.empty_like(order, np.float64)
+    rank[order] = np.arange(1, len(pred) + 1)
+    pos, neg = label.sum(), (1 - label).sum()
+    return float((rank[label == 1].sum() - pos * (pos + 1) / 2) /
+                 max(pos * neg, 1))
+
+
+def fraud_step_flops(module, batch):
+    """A training step's FLOPs from the Linear shapes, 2 a multiply-add:
+    the forward, every weight gradient, and every input gradient but the
+    first layer's (its input is the batch)."""
+    linears = [m for m in module.modules() if isinstance(m, torch.nn.Linear)]
+    macs = [m.in_features * m.out_features for m in linears]
+    fwd = 2.0 * batch * sum(macs)
+    return {"forward_flops": fwd, "step_flops": 2 * fwd
+            + 2.0 * batch * sum(macs[1:]),
+            "parameters": sum(p.numel() for p in module.parameters())}
+
+
+def fraud_nnframes_train_phase(card):
+    """NNEstimator(Sequential(...).to_module(), "binary_crossentropy")
+    .setBatchSize(16384).setMaxEpoch(3).fit(train_df), then
+    NNModel.transform(holdout_df): fit samples/s over the whole call (the
+    DataFrame -> array conversion, which fit repeats inside, timed apart),
+    transform rows/s, the holdout AUC against its limits; then the
+    underlying estimator re-fits 2 epochs with per-step times for the
+    steady rate, as bench.py's bench_fraud_mlp re-runs it."""
+    from analytics_zoo_tpu_torch.pipeline.nnframes import NNEstimator
+    from analytics_zoo_tpu_torch.pipeline.nnframes.nn_classifier import \
+        _col_to_array
+    cfg = FRAUD
+    train, holdout = _fraud_frames()
+    net = _fraud_net()
+    est = (NNEstimator(net.to_module(), "binary_crossentropy")
+           .setBatchSize(cfg["batch"]).setMaxEpoch(cfg["epochs"]))
+    t0 = time.perf_counter()
+    x = _col_to_array(train, "features")
+    y = _col_to_array(train, "label")
+    convert_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    inner = model.estimator
+    if not _on_card(inner.module):
+        fail("NNEstimator did not train on the card")
+    t0 = time.perf_counter()
+    scored = model.setBatchSize(cfg["batch"]).transform(holdout)
+    transform_s = time.perf_counter() - t0
+    pred = np.asarray(list(scored["prediction"]), np.float32).reshape(-1)
+    auc = rank_auc(pred, holdout["label"].to_numpy(np.float32))
+    losses = [s["train_loss"] for s in inner.train_stats]
+    steps = inner.engine.step
+    prof = inner.fit({"x": x, "y": y}, epochs=2, batch_size=cfg["batch"],
+                     verbose=False, profile=True)
+    step_ms = [t for s in prof for t in s["profile"]["step_ms"]]
+    steady_ms = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    checks = {
+        "prediction_shape": pred.shape == (len(holdout),),
+        "finite": bool(np.isfinite(pred).all())
+        and all(map(math.isfinite, losses)),
+        "auc_vs_port_cpu": abs(auc - FRAUD_AUC_PORT_CPU) <= FRAUD_AUC_SAME,
+        "auc_vs_jax": auc >= FRAUD_AUC_JAX - FRAUD_AUC_MARGIN}
+    n = len(train)
+    emit({"phase": "fraud_nnframes_train",
+          "model": "Keras Sequential Dense 256-128-64-1 (ReLU, sigmoid), "
+                   "29 features, f32",
+          "entry": "NNEstimator(net.to_module(), 'binary_crossentropy')"
+                   ".setBatchSize(16384).setMaxEpoch(3).fit(df) -> "
+                   "NNModel.transform(holdout)",
+          "rows": n, "holdout_rows": len(holdout),
+          "holdout_fraud": int(holdout["label"].sum()),
+          "batch": cfg["batch"], "epochs": cfg["epochs"], "steps": steps,
+          "train_loss": losses, "fit_s": fit_s,
+          "fit_samples_per_s": n * cfg["epochs"] / fit_s,
+          "convert_s": convert_s,
+          "fit_samples_per_s_without_convert":
+              n * cfg["epochs"] / (fit_s - convert_s),
+          "transform_s": transform_s,
+          "transform_rows_per_s": len(holdout) / transform_s,
+          "step_ms": step_ms, "steady_step_ms": steady_ms,
+          "steady_samples_per_s": cfg["batch"] / steady_ms * 1e3,
+          "auc": auc, "auc_port_cpu": FRAUD_AUC_PORT_CPU,
+          "auc_same_limit": FRAUD_AUC_SAME, "auc_jax_cpu": FRAUD_AUC_JAX,
+          "auc_margin": FRAUD_AUC_MARGIN, "checks": checks,
+          "peak_memory_bytes": peak,
+          **fraud_step_flops(inner.module, cfg["batch"]), "card": card})
+    if not all(checks.values()):
+        fail(f"fraud NNFrames training failed its checks: {checks}")
+    return inner, x, y
+
+
+def _is_copy(name):
+    return "memcpy" in name or "htod" in name
+
+
+def _fraud_op_class(name, ops):
+    """The class of a device event of a fraud MLP step: the copy, Adam,
+    the GEMMs (cuBLAS kernels, forward or backward), the loss (forward:
+    inside the ``loss`` range the phase opens; backward: autograd nodes
+    other than the Linear, ReLU and sigmoid ones), else elementwise."""
+    if _is_copy(name):
+        return "h2d_copy"
+    ops_s = " ".join(ops).lower()
+    if "optimizer.step" in ops_s:
+        return "adam"
+    side = "backward" if "backward" in ops_s else "forward"
+    if "gemm" in name or "cutlass" in name or "xmma" in name:
+        return f"gemm_{side}"
+    if side == "forward":
+        return "loss_forward" if "loss" in ops else "elementwise_forward"
+    if any(k in ops_s for k in ("addmmbackward", "relubackward",
+                                "thresholdbackward", "sigmoidbackward",
+                                "tbackward", "accumulategrad")):
+        return "elementwise_backward"
+    return "loss_backward"
+
+
+def fraud_profile_phase(inner, x, y, card):
+    """torch.profiler over FRAUD_PROFILE_STEPS steps after a warm step,
+    fed through the infeed pump: device busy and idle share, kernels a
+    step, device ms a step by class, and the step's FLOPs against the f32
+    peak. The loss runs inside a ``loss`` record_function here only, so
+    that its forward kernels can be told apart."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from analytics_zoo_tpu_torch.orca.learn import utils as learn_utils
+    eng = inner.engine
+    loss_fn = eng.loss_fn
+
+    def traced_loss(y_true, y_pred):
+        with record_function("loss"):
+            return loss_fn(y_true, y_pred)
+    eng.loss_fn = traced_loss
+    it = learn_utils.BatchIterator({"x": (x,), "y": (y,)}, FRAUD["batch"],
+                                   shuffle=True, device=inner.device)
+    batches = it.epoch(prefetch=True)
+    try:
+        eng.train_batch(next(batches))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(FRAUD_PROFILE_STEPS):
+                eng.train_batch(next(batches))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        batches.close()
+        eng.loss_fn = loss_fn
+    dev_events = _device_events(prof)
+    if not dev_events:
+        fail("the profiler saw no device time in the fraud steps")
+    stacks = _launching_ops(prof)
+    by_class, by_kernel, unattributed = {}, {}, 0
+    n = FRAUD_PROFILE_STEPS
+    for evt in dev_events:
+        ms = evt.time_range.elapsed_us() / 1e3 / n
+        ops = stacks.get(evt.id)
+        if ops is None and not _is_copy(evt.name.lower()):
+            unattributed += 1
+            cls = "unattributed"
+        else:
+            cls = _fraud_op_class(evt.name.lower(), ops or [])
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        tot, k = by_kernel.get(evt.name, (0.0, 0))
+        by_kernel[evt.name] = (tot + ms, k + 1)
+    busy = _busy_ms(dev_events) / n
+    flops = fraud_step_flops(inner.module, FRAUD["batch"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:16]
+    emit({"phase": "fraud_profile", "batch": FRAUD["batch"],
+          "steps_profiled": n, "wall_ms_per_step": wall_ms / n,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy * n / wall_ms,
+          "kernels_per_step": len(dev_events) / n,
+          "device_ms_by_class_per_step": by_class,
+          "device_events_unattributed": unattributed,
+          "top_kernels_ms_per_step": [
+              {"name": k[:160], "ms": v[0], "launches": v[1] / n}
+              for k, v in top],
+          **flops, "fp32_peak_flops": PEAK_F32_CUDA_CORES,
+          "bound_ms": flops["step_flops"] / PEAK_F32_CUDA_CORES * 1e3,
+          "busy_fp32_share": flops["step_flops"] / (busy / 1e3)
+          / PEAK_F32_CUDA_CORES,
+          "pipeline": it.stats.snapshot(), "card": card})
+
+
+def _fraud_steps(dev, state, batches, optimizer="adam"):
+    """Train steps of the fraud MLP on ``dev`` from ``state``, one per
+    batch in order: each step's loss, and each step's gradients and the
+    parameters after it, on the CPU."""
+    from analytics_zoo_tpu_torch.orca.learn.estimator import TPUEstimator
+    from analytics_zoo_tpu_torch.orca.learn.utils import Batch
+    net = _fraud_net()
+    net.to_module().load_state_dict(state)
+    est = TPUEstimator(net.to_module(), loss="binary_crossentropy",
+                       optimizer=optimizer, device=dev)
+    est.engine.build()
+    losses, grads, params = [], [], []
+    for bx, by in batches:
+        losses.append(float(est.engine.train_batch(
+            Batch(x=(bx,), y=(by,), w=None))))
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in est.module.named_parameters()})
+        params.append({n: p.detach().cpu().clone()
+                       for n, p in est.module.named_parameters()})
+    return losses, grads, params
+
+
+def _fraud_batches(count, batch, seed):
+    x, y = synthetic_fraud(count * batch, FRAUD["features"],
+                           FRAUD["fraud_rate"], seed)
+    return [(x[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch,
+                                               None])
+            for i in range(count)]
+
+
+def fraud_vs_cpu_phase(card, dev="cuda"):
+    """Two Adam steps of the fraud MLP at batch 16384, f32 with TF32 off,
+    on the card and on the CPU from the same weights: each step's loss
+    (relative) and gradients (the largest error of a parameter's gradient
+    relative to its largest entry) held to TOL_FRAUD, against a control,
+    the card with the two batches swapped, that must miss every limit."""
+    state = {k: v.clone() for k, v in
+             _fraud_net().to_module().state_dict().items()}
+    batches = _fraud_batches(2, FRAUD["batch"], seed=11)
+    t0 = time.perf_counter()
+    card_run = _fraud_steps(dev, state, batches)
+    cpu_run = _fraud_steps("cpu", state, batches)
+    control_run = _fraud_steps(dev, state, batches[::-1])
+
+    def readings(run, step):
+        return {"loss": abs(run[0][step] - cpu_run[0][step])
+                / abs(cpu_run[0][step]),
+                "grad": max(_rel_err(run[1][step][k], cpu_run[1][step][k])
+                            for k in cpu_run[1][step])}
+    got = [readings(card_run, s) for s in (0, 1)]
+    control = [readings(control_run, s) for s in (0, 1)]
+    held = all(r[k] <= TOL_FRAUD[k] for r in got for k in TOL_FRAUD)
+    rejected = all(r[k] > TOL_FRAUD[k] for r in control for k in TOL_FRAUD)
+    emit({"phase": "fraud_vs_cpu", "batch": FRAUD["batch"], "steps": 2,
+          "optimizer": "adam (NNEstimator's default)",
+          "loss_card": card_run[0], "loss_cpu": cpu_run[0],
+          "readings": got, "limits": TOL_FRAUD,
+          "control": "the card with the two batches swapped",
+          "control_readings": control, "control_rejected": rejected,
+          "run_s": time.perf_counter() - t0, "card": card})
+    if not (held and rejected and all(map(math.isfinite, card_run[0]))):
+        fail(f"fraud steps on the card disagree with the CPU: {got}, "
+             f"control {control}")
+
+
+def _kaggle_csvs(root):
+    """KERAS_CSV's rows in Kaggle's creditcard.csv schema (Time, V1..V28,
+    Amount, Class), fraud as synthetic_fraud makes it, in KERAS_CSV
+    ["files"] files."""
+    import pandas as pd
+    cfg = KERAS_CSV
+    x, y = synthetic_fraud(cfg["rows"], 30, FRAUD["fraud_rate"], seed=5)
+    cols = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
+    df = pd.DataFrame(x, columns=cols)
+    df["Class"] = y.astype(np.int64)
+    per = cfg["rows"] // cfg["files"]
+    for i in range(cfg["files"]):
+        df.iloc[i * per:(i + 1) * per].to_csv(
+            os.path.join(root, f"creditcard-{i}.csv"), index=False)
+    return cols[1:], ["Class"]
+
+
+def keras_csv_fit_phase(card, root):
+    """The fraud MLP through the port's Keras API over read_csv XShards:
+    4 CSV files of KERAS_CSV rows read into XShards; ``Sequential([Lambda
+    stacking the 29 feature columns, Dense 256, 128, 64, 1]).compile
+    ("adam", "binary_crossentropy")``, ``set_tensorboard``,
+    ``fit(shards, feature_cols, label_cols, batch_size=16384)``: one
+    ``Loss`` scalar a step in ``get_train_summary``; ``predict`` on XShards;
+    ``save_weights`` -> a fresh net's ``load_weights`` evaluates to the same
+    loss exactly."""
+    from analytics_zoo_tpu_torch.orca.data.pandas import read_csv
+    from analytics_zoo_tpu_torch.pipeline.api import autograd
+    cfg = KERAS_CSV
+    data_dir = os.path.join(root, "csv")
+    os.makedirs(data_dir)
+    feature_cols, label_cols = _kaggle_csvs(data_dir)
+    t0 = time.perf_counter()
+    shards = read_csv(data_dir)
+    read_s = time.perf_counter() - t0
+
+    def build():
+        stack = autograd.Lambda(
+            lambda *cols: autograd.stack(list(cols), axis=1))
+        return _fraud_net(head=[stack]).compile("adam",
+                                                "binary_crossentropy")
+    net = build()
+    net.set_tensorboard(os.path.join(root, "tb"), "fraud")
+    kw = dict(feature_cols=feature_cols, label_cols=label_cols,
+              batch_size=cfg["batch"])
+    t0 = time.perf_counter()
+    stats = net.fit(shards, nb_epoch=cfg["epochs"], verbose=False, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    summary = net.get_train_summary("Loss")
+    steps = cfg["epochs"] * cfg["rows"] // cfg["batch"]
+    pred = net.predict(shards, feature_cols=feature_cols,
+                       batch_size=cfg["batch"])
+    parts = pred.collect()
+    loss = net.evaluate(shards, **kw)["loss"]
+    path = os.path.join(root, "weights.pt")
+    net.save_weights(path)
+    again = build()
+    again.load_weights(path)
+    loss_again = again.evaluate(shards, **kw)["loss"]
+    per = steps // cfg["epochs"]
+    epoch_means = [float(np.mean([v for _, v in
+                                  summary[e * per:(e + 1) * per]]))
+                   for e in range(cfg["epochs"])]
+    checks = {
+        "partitions": shards.num_partitions() == cfg["files"],
+        "summary_steps": [s for s, _ in summary] == list(range(1, steps + 1)),
+        "summary_is_the_losses": np.allclose(
+            epoch_means, [s["train_loss"] for s in stats], rtol=1e-6),
+        "predict_xshards": len(parts) == cfg["files"] and all(
+            p["prediction"].shape == (cfg["rows"] // cfg["files"], 1)
+            and np.isfinite(p["prediction"]).all() for p in parts),
+        "reload_same_loss": loss_again == loss and math.isfinite(loss),
+        "on_card": _on_card(net.to_module())}
+    emit({"phase": "keras_csv_fit", "rows": cfg["rows"],
+          "files": cfg["files"], "batch": cfg["batch"],
+          "epochs": cfg["epochs"], "read_s": read_s, "fit_s": fit_s,
+          "fit_samples_per_s": cfg["rows"] * cfg["epochs"] / fit_s,
+          "stats": stats, "summary_scalars": len(summary),
+          "eval_loss": loss, "eval_loss_reloaded": loss_again,
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"Keras fit over read_csv XShards failed its checks: {checks}")
+
+
+def _update_readings(run, ref, state):
+    """The largest relative loss error over the steps, and the largest
+    error of a step's parameter update relative to that parameter's
+    largest update, over the entries whose sign rounding cannot decide:
+    an entry whose CPU gradient is within TOL_FRAUD["grad"] of zero (of
+    the largest entry) at a step is freed from then on, since a
+    sign-like rule (Adamax's first step is mu / |g| = sign(g)) moves it
+    by +-lr on the sign of a rounding error. Freed entries are counted,
+    and their largest error is reported."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run[0], ref[0]))
+    worst, worst_freed, freed, prev_run, prev_ref = 0.0, 0.0, {}, state, \
+        state
+    for step in range(len(ref[0])):
+        for k, g in ref[1][step].items():
+            near0 = g.abs() <= TOL_FRAUD["grad"] * g.abs().max()
+            free = freed.get(k, torch.zeros_like(near0)) | near0
+            freed[k] = free
+            d_run = run[2][step][k] - prev_run[k]
+            d_ref = ref[2][step][k] - prev_ref[k]
+            err = ((d_run - d_ref).abs()
+                   / d_ref.abs().max().clamp_min(1e-30))
+            if (~free).any():
+                worst = max(worst, err[~free].max().item())
+            if free.any():
+                worst_freed = max(worst_freed, err[free].max().item())
+        prev_run, prev_ref = run[2][step], ref[2][step]
+    return {"loss": loss, "update": worst, "update_freed": worst_freed,
+            "freed_entries": int(sum(f.sum().item()
+                                     for f in freed.values()))}
+
+
+def optimizers_vs_cpu_phase(card, dev="cuda"):
+    """Each optax-formula optimizer, 3 steps of the fraud MLP at batch
+    16384 on the card and on the CPU from the same weights (f32, TF32
+    off): the losses and each step's parameter updates held to
+    TOL_OPTIMIZERS (``_update_readings``), against the control of the
+    card's steps with the first two batches swapped, which must miss
+    both. Adamax runs at its default eps, 1e-38, an f32 subnormal:
+    ``adamax_zero_grad`` reports what the card does where a gradient is 0
+    (0 / 1e-38 = 0 keeps the parameter; a flush to zero would make it
+    NaN)."""
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import (
+        Adadelta, Adagrad, Adamax, Ftrl, RMSprop)
+    optimizers = {
+        "Adagrad": Adagrad(learningrate=0.01, learningrate_decay=0.01,
+                           weightdecay=1e-4),
+        "Adadelta": Adadelta(), "Adamax": Adamax(),
+        "RMSprop": RMSprop(lr=1e-3),
+        "Ftrl": Ftrl(learningrate=0.01, l2_regularization_strength=1e-4)}
+    state = {k: v.clone() for k, v in
+             _fraud_net().to_module().state_dict().items()}
+    batches = _fraud_batches(3, FRAUD["batch"], seed=13)
+    swapped = [batches[1], batches[0], batches[2]]
+    t0 = time.perf_counter()
+    result, failed = {}, []
+    for name, opt in optimizers.items():
+        card_run = _fraud_steps(dev, state, batches, opt.to_torch())
+        cpu_run = _fraud_steps("cpu", state, batches, opt.to_torch())
+        control_run = _fraud_steps(dev, state, swapped, opt.to_torch())
+        got = _update_readings(card_run, cpu_run, state)
+        control = _update_readings(control_run, cpu_run, state)
+        ok = (all(got[k] <= TOL_OPTIMIZERS[k] for k in TOL_OPTIMIZERS)
+              and all(control[k] > TOL_OPTIMIZERS[k]
+                      for k in TOL_OPTIMIZERS)
+              and all(math.isfinite(v) for v in card_run[0]))
+        result[name] = {"loss_card": card_run[0], "loss_cpu": cpu_run[0],
+                        "readings": got, "control_readings": control,
+                        "ok": ok}
+        if not ok:
+            failed.append(name)
+    # Adamax at eps 1e-38 where a gradient entry is exactly 0
+    p = torch.nn.Parameter(torch.ones(4, device=dev))
+    adamax = Adamax().to_torch()([p])
+    p.grad = torch.tensor([0.0, 1.0, -2.0, 0.5], device=dev)
+    adamax.step()
+    zero = p.detach().cpu().tolist()
+    result["adamax_zero_grad"] = {
+        "params_after": zero, "eps_f32": float(np.float32(1e-38)),
+        "zero_entry_kept": zero[0] == 1.0 and math.isfinite(zero[0])}
+    emit({"phase": "optimizers_vs_cpu", "batch": FRAUD["batch"],
+          "steps": 3, "limits": TOL_OPTIMIZERS,
+          "control": "the card with the first two batches swapped",
+          **result, "run_s": time.perf_counter() - t0, "card": card})
+    if failed or not result["adamax_zero_grad"]["zero_entry_kept"]:
+        fail(f"optimizers on the card disagree with the CPU: {failed}")
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -2122,7 +2671,8 @@ def _spread(xs):
     return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
 
 
-def kernels_line(errs, bwd_errs, serve_launches, train_launches):
+def kernels_line(errs, bwd_errs, serve_launches, train_launches,
+                 fraud_launches):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
     q/k/v strided views of the fused projection): the kernel's device time
     (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
@@ -2226,12 +2776,14 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches):
         if name == "flash_fwd":
             entry["launches_by_path"] = {
                 "serve": serve_launches,
-                "train": train_launches["flash_fwd"]}
+                "train": train_launches["flash_fwd"],
+                "fraud": fraud_launches["flash_fwd"]}
             entry["library"] = "scaled_dot_product_attention forward"
             entry["library_timing"] = "CUDA-graph replays, in turns"
             entry["library_ms_eager"] = _spread(fwd["library"])
         else:
-            entry["launches_by_path"] = {"train": launches}
+            entry["launches_by_path"] = {"train": launches,
+                                         "fraud": fraud_launches[name]}
             entry["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
             entry["library"] = ("scaled_dot_product_attention backward "
                                 "(autograd.grad of one forward output)")
@@ -2282,7 +2834,26 @@ def main():
     torch_operator_fit_phase(x, y, card)
     torch_xshards_fit_phase(x, y, card)
     del x, y
-    kernels_line(errs, bwd_errs, serve_launches, train_launches)
+    from analytics_zoo_tpu_torch.ops import attention as at
+    kernels = (at.flash_fwd, at.flash_bwd_dq, at.flash_bwd_dkv)
+    kept = [fn.launches for fn in kernels]
+    for fn in kernels:
+        fn.launches = 0
+    inner, x, y = fraud_nnframes_train_phase(card)
+    fraud_launches = {fn.__name__: fn.launches for fn in kernels}
+    for fn, n in zip(kernels, kept):
+        fn.launches = n
+    fraud_profile_phase(inner, x, y, card)
+    del inner, x, y
+    fraud_vs_cpu_phase(card)
+    root = tempfile.mkdtemp(prefix="keras-csv-")
+    try:
+        keras_csv_fit_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    optimizers_vs_cpu_phase(card)
+    kernels_line(errs, bwd_errs, serve_launches, train_launches,
+                 fraud_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

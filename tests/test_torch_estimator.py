@@ -206,19 +206,21 @@ def test_save_load_round_trip(tmp_path):
 
 def test_planes_not_ported_raise():
     """What is still not ported raises instead of being ignored: a
-    ``profile=<trace dir>`` and the optimizers without a torch
-    counterpart yet (``model_dir`` and ``checkpoint_trigger`` are ported
-    now: tests/test_torch_ckpt.py)."""
+    ``profile=<trace dir>`` and the optimizer without a torch counterpart
+    yet, LBFGS (``model_dir`` and ``checkpoint_trigger`` are ported now:
+    tests/test_torch_ckpt.py; the other optimizers:
+    tests/test_torch_optimizers.py)."""
     est = ttext.BERTClassifier(num_classes=2, bert_config=TINY_BERT,
                                device="cpu")
     ids = _token_batch(n=8)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         est.fit({"x": ids, "y": ids[:, 0] % 2}, batch_size=8,
                 profile="/nonexistent")
-    for name in ("adagrad", "rmsprop"):
+    for kwargs in ({}, {"max_iter": 5}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttext.BERTClassifier(num_classes=2, bert_config=TINY_BERT,
-                                 optimizer=name, device="cpu")
+                                 optimizer=topt.LBFGS(**kwargs),
+                                 device="cpu")
 
 
 def test_estimator_needs_a_gpu_unless_asked_for_cpu(monkeypatch):

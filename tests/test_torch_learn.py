@@ -171,8 +171,9 @@ def test_convert_optimizer_forms():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: topt.Adagrad(), lambda: topt.RMSprop(), lambda: topt.Ftrl(),
-    lambda: topt.convert_optimizer("adamax"),
+    lambda: topt.LBFGS(), lambda: topt.LBFGS(max_iter=5),
+    lambda: tsched.MultiStep([10, 20], 0.1),
+    lambda: tsched.Plateau("score"),
     lambda: tsched.Exponential(100, 0.5), lambda: tsched.Step(10, 0.1),
     lambda: topt.Adam(decay=0.1),
 ])

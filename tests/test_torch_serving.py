@@ -115,7 +115,17 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "orca.learn.optimizers.schedule",
     "utils.nest", "orca.data.chunked", "orca.data.shard",
     "orca.learn.pytorch", "orca.learn.pytorch.estimator",
-    "orca.learn.pytorch.training_operator")]
+    "orca.learn.pytorch.training_operator",
+    "pipeline.api.keras", "pipeline.api.keras.activations",
+    "pipeline.api.keras.objectives", "pipeline.api.keras.engine",
+    "pipeline.api.keras.engine.graph", "pipeline.api.keras.engine.topology",
+    "pipeline.api.keras.layers.core",
+    "pipeline.api.keras.layers.normalization",
+    "pipeline.api.keras.layers.advanced_activations",
+    "pipeline.api.keras.layers.noise", "pipeline.api.autograd",
+    "pipeline.nnframes", "pipeline.nnframes.nn_classifier",
+    "orca.data.pandas", "orca.data.pandas.preprocessing",
+    "utils.tensorboard", "utils.protostream")]
 
 
 def test_port_imports_no_jax():
