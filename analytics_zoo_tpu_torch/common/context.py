@@ -39,6 +39,18 @@ def resolve_device(device: Union[None, str, torch.device] = None
     return dev
 
 
+def local_devices(device: Union[None, str, torch.device] = None
+                  ) -> List[torch.device]:
+    """The devices of ``device``'s type that this process computes on:
+    every visible card for ``cuda`` (the one named for ``cuda:i``), the CPU
+    for ``cpu``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 class ClusterContext:
     """Holds the config and the torch devices of this (single) process."""
 
@@ -105,12 +117,7 @@ def init_orca_context(cluster_mode: str = "local",
                            "existing context (call stop_orca_context first "
                            "to rebuild)")
             return _current
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        else:
-            devices = [dev]
+        devices = local_devices(device)
         cfg = (config or OrcaConfig()).replace(cluster_mode=cluster_mode)
         cfg.extra.update(extra)
         _setup_logging(cfg.log_level)

@@ -7,7 +7,11 @@ wrapper). The port's modules carry the flax module names as submodule
 names, so the mapping is by name, leaf by leaf:
 
 * Dense ``kernel (in, out)``    <-> Linear ``weight (out, in)`` (transposed)
-* Conv ``kernel (kh, kw, in, out)`` <-> ``weight (out, in, kh, kw)``
+* Conv ``kernel (kh, kw, in, out)`` <-> ``weight (out, in, kh, kw)``, and
+  the 1-D Conv ``kernel (k, in, out)`` <-> ``Conv1d.weight (out, in, k)``
+* flax's LSTM cells (``OptimizedLSTMCell``) are Dense layers by name
+  (``ii``/``if``/``ig``/``io`` without bias, ``hi``/``hf``/``hg``/``ho``
+  with), so the Dense rule covers them (``zouwu/model/nets.py``).
 * LayerNorm and BatchNorm ``scale`` / ``bias`` <-> ``weight`` / ``bias``
 * Dense ``bias``, embedding tables (``embedding``) and free parameters
   such as ``position_embedding`` are copied as they are.
@@ -79,9 +83,10 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 # flax batch_stats leaf <-> torch BatchNorm buffer
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _BUFFERS = {v: k for k, v in _STATS.items()}
-# kernel (flax) -> weight (torch) axis order, by rank: Dense, Conv
-_TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1)}
-_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+# kernel (flax) -> weight (torch) axis order, by rank: Dense, 1-D Conv,
+# 2-D Conv
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _split_variables(variables: Mapping[str, Any]):
@@ -104,8 +109,8 @@ def flax_to_state_dict(variables: Mapping[str, Any]
         prefix = path + "." if path else ""
         if leaf_name == "kernel":
             if arr.ndim not in _TO_TORCH:
-                raise ValueError(f"{name}: only Dense (2-D) and Conv (4-D) "
-                                 f"kernels are bridged, got shape "
+                raise ValueError(f"{name}: only Dense (2-D) and Conv (3-D, "
+                                 f"4-D) kernels are bridged, got shape "
                                  f"{arr.shape}")
             sd[prefix + "weight"] = torch.from_numpy(
                 np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))

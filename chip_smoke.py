@@ -89,6 +89,25 @@ synthetic data, 100,000 rows, 2 % fraud), it
 * takes 3 steps with each of Adagrad, Adadelta, Adamax, RMSprop and Ftrl
   on the card and on the CPU (``optimizers_vs_cpu``).
 
+Then, with Zouwu's AutoTS at bench.py's ``bench_autots_trials``
+configuration (BASELINE #4: 2000 hourly points of a noisy daily sine, an
+LSTM and a TCN grid-random search of 4 trials each on TPUSearchEngine's
+device leases), it
+
+* runs a warm-up round and 3 timed rounds through ``AutoTSTrainer.fit``:
+  every trial ends ``done`` on cuda:0 with the config the engine's seed
+  gives, trials/hour from the best round; each winner's ``TSPipeline``
+  predicts, evaluates, saves and loads (``autots_trials``; no flash kernel
+  launches on this path);
+* profiles an LSTM and a TCN trial's steps at batch 64
+  (``autots_profile``);
+* takes 2 Adam steps of the LSTM, TCN, Seq2Seq and MTNet forecasters on
+  the card and on the CPU (``zouwu_vs_cpu``, cuDNN's LSTM in f32);
+* holds MTNetLite to the NYC-taxi gate of tests/test_zouwu_real_data.py
+  (``zouwu_real_data``);
+* searches lr and batch size for a torch MLP through
+  ``AutoEstimator.from_torch`` (``auto_estimator_search``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -296,6 +315,42 @@ TOL_OPTIMIZERS = {"loss": TOL_STEP_LOSS, "update": 1e-3}
 # The Keras API over read_csv: 65,536 rows of Kaggle's creditcard.csv
 # schema in 4 files, batch 16,384, 2 epochs.
 KERAS_CSV = dict(rows=65536, files=4, batch=16384, epochs=2)
+# Zouwu AutoTS, BASELINE #4 (bench.py's bench_autots_trials at full size):
+# 2000 hourly points of sin(2 pi t / 24) + 0.1 N(0, 1) (RandomState(0)),
+# horizon 1, past 50 (the recipes' only choice), 6 features a step (the
+# value and five datetime features); each round an LSTM search
+# (LSTMGridRandomRecipe(num_rand_samples=2, epochs=5): batch 32 | 64 x 2
+# draws of units (16|32, 8|16), dropout U(0.1, 0.3), log-uniform lr) and a
+# TCN search (TCNGridRandomRecipe(num_rand_samples=2,
+# training_iteration=5): channels (16, 16, 16), kernel 3 | 5), 8 trials,
+# on TPUSearchEngine(seed=42) with the default scheduler. One warm-up
+# round, then AUTOTS["rounds"] timed rounds (the bench's 3).
+AUTOTS = dict(points=2000, horizon=1, n_rand=2, epochs=5, rounds=3,
+              engine_seed=42)
+AUTOTS_PROFILE_STEPS = 10
+# Card vs CPU forecaster steps (2 Adam steps at batch 64 on the AutoTS
+# windows, f32 with TF32 off for matmuls and cuDNN): each step's loss
+# (relative) at BERT's 1e-5, and each gradient at 1e-3 relative to its
+# largest entry (BERT's TOL_STEP_GRAD: a gradient is a difference of
+# nearly equal sums, here over 64 rows and, for the LSTMs, 50 steps of
+# backpropagation through time, summed by cuDNN in another order than the
+# CPU's loop; MTNetLite's attention bias, whose gradient is zero in exact
+# arithmetic, is held against 1e-3 of the step's largest gradient). The
+# control, the card with the two batches swapped, must miss both.
+# Readings on an H100 80GB HBM3 at 700 W: losses at most 4.3e-7;
+# gradients LSTM 8.1e-6, TCN 1.3e-6, Seq2Seq 1.2e-5, MTNet 4.4e-5; the
+# control at least 0.028 (loss) and 2.06 (gradients).
+TOL_ZOUWU = {"loss": TOL_STEP_LOSS, "grad": TOL_STEP_GRAD}
+# tests/test_zouwu_real_data.py's MTNetLite gate, held for each of five
+# initial draws (the nets' init seeds), since one draw's MSE spreads by a
+# quarter with the initial weights. On the CPU the port's seed 0 reads
+# MTNetLite 0.0318 against the LSTM's 0.0228, over the band 1.3 x 0.0228
+# + 1e-3 = 0.0306, and seeds 1-4 read 0.0247-0.0279 against 0.0217-0.0276,
+# inside it; the JAX package's seeds 0-4 read 0.0240-0.0265 against
+# 0.0211-0.0234 (scripts/nyc_taxi_gate_reference.py). On the card (other
+# dropout draws) every seed passed: MTNetLite 0.0251-0.0294 against the
+# LSTM's 0.0219-0.0273 (H100 80GB HBM3, 700 W).
+REAL_DATA_SEEDS = (0, 1, 2, 3, 4)
 
 
 def emit(obj):
@@ -2583,6 +2638,482 @@ def optimizers_vs_cpu_phase(card, dev="cuda"):
         fail(f"optimizers on the card disagree with the CPU: {failed}")
 
 
+# --- Zouwu AutoTS (BASELINE #4) ----------------------------------------------
+
+def _autots_frame():
+    """bench_autots_trials's series: AUTOTS["points"] hourly points of
+    sin(2 pi t / 24) + 0.1 N(0, 1) from numpy's RandomState(0)."""
+    import pandas as pd
+    n = AUTOTS["points"]
+    rng = np.random.RandomState(0)
+    value = (np.sin(np.arange(n) / 24 * 2 * np.pi)
+             + 0.1 * rng.randn(n)).astype(np.float32)
+    return pd.DataFrame({"datetime": pd.date_range("2024-01-01", periods=n,
+                                                   freq="h"),
+                         "value": value})
+
+
+def _autots_recipes():
+    from analytics_zoo_tpu_torch.zouwu.config.recipe import (
+        LSTMGridRandomRecipe, TCNGridRandomRecipe)
+    return [LSTMGridRandomRecipe(num_rand_samples=AUTOTS["n_rand"],
+                                 epochs=AUTOTS["epochs"]),
+            TCNGridRandomRecipe(num_rand_samples=AUTOTS["n_rand"],
+                                training_iteration=AUTOTS["epochs"])]
+
+
+def _seed_configs(recipe):
+    """The trials the engine's seed gives a recipe: grid axes expanded,
+    the rest sampled num_samples times from RandomState(seed), in the
+    engine's order (TPUSearchEngine.compile)."""
+    from analytics_zoo_tpu_torch.automl import hp
+    space = recipe.search_space([])
+    rng = np.random.RandomState(AUTOTS["engine_seed"])
+    return [hp.sample_config(g, rng) for g in hp.grid_configs(space)
+            for _ in range(recipe.num_samples)]
+
+
+def autots_trials_phase(card, root):
+    """bench_autots_trials at full size through ``AutoTSTrainer.fit`` on
+    the card: one warm-up round, then AUTOTS["rounds"] timed rounds, each
+    an LSTM and a TCN grid-random search of 4 trials (TPUSearchEngine,
+    seed 42, the default scheduler: one trial at a time on the leased
+    card). Every trial of every round must end ``done`` on cuda:0 with the
+    config the seed gives. Then each recipe's winning ``TSPipeline``
+    predicts (finite, one row a window) and evaluates (MSE below the mean
+    predictor's), saves and loads, and the loaded pipeline evaluates to
+    the same MSE."""
+    from analytics_zoo_tpu_torch.zouwu.autots import (AutoTSTrainer,
+                                                      TSPipeline)
+    df = _autots_frame()
+    recipes = _autots_recipes()
+    expected = [_seed_configs(r) for r in recipes]
+    trainer = AutoTSTrainer(dt_col="datetime", target_col="value",
+                            horizon=AUTOTS["horizon"])
+    t0 = time.perf_counter()
+    for recipe in recipes:
+        trainer.fit(df, validation_df=None, recipe=recipe)
+    warmup_s = time.perf_counter() - t0
+    round_s, bad, last = [], [], []
+    for r in range(AUTOTS["rounds"]):
+        t0 = time.perf_counter()
+        pipes, rows = [], []
+        for recipe, want in zip(recipes, expected):
+            pipe = trainer.fit(df, validation_df=None, recipe=recipe)
+            trials = trainer.engine._trials
+            for t in trials:
+                rows.append({"model": recipe.model_type(),
+                             "trial": t.trial_id,
+                             "config": t.config,
+                             "score_mse": t.metric_value, "state": t.state,
+                             "device": t.device,
+                             "epochs": t.epochs_trained,
+                             "seconds": t.duration_s})
+            if ([t.config for t in trials] != want
+                    or any(t.state != "done" or t.device != "cuda:0"
+                           for t in trials)):
+                bad.append((r, recipe.model_type()))
+            pipes.append((recipe.model_type(), pipe,
+                          trainer.engine.summary()))
+        round_s.append(time.perf_counter() - t0)
+        last = (pipes, rows)
+    pipes, rows = last
+    n_trials = len(rows)
+    best = min(round_s)
+    winners, checks = {}, {"all_trials_done_on_cuda0_with_seed_configs":
+                           not bad and n_trials == 8}
+    for model, pipe, summary in pipes:
+        frame = pipe.predict(df)
+        x, y = pipe.tsft.transform(df, is_train=True)
+        res = pipe.evaluate(df, metrics=["mse", "smape"])
+        path = os.path.join(root, f"{model}.pipeline")
+        pipe.save(path)
+        loaded = TSPipeline.load(path)
+        again = loaded.evaluate(df, metrics=["mse", "smape"])
+        mean_predictor = float(np.mean(y[:, :1] ** 2))
+        winners[model] = {
+            "config": pipe.config, "eval": res,
+            "eval_loaded": again, "mean_predictor_mse": mean_predictor,
+            "predict_rows": len(frame), "lease_telemetry": summary}
+        checks[f"{model}_predict"] = (
+            len(frame) == len(x) and list(frame.columns) == ["datetime",
+                                                             "value"]
+            and np.isfinite(frame["value"].to_numpy()).all())
+        checks[f"{model}_beats_mean"] = res["mse"] < mean_predictor
+        checks[f"{model}_reload_same_mse"] = again["mse"] == res["mse"]
+        checks[f"{model}_on_card"] = all(
+            p.is_cuda for p in loaded.forecaster.module.parameters())
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "autots_trials", "points": AUTOTS["points"],
+          "recipes": [f"LSTMGridRandomRecipe(num_rand_samples="
+                      f"{AUTOTS['n_rand']}, epochs={AUTOTS['epochs']})",
+                      f"TCNGridRandomRecipe(num_rand_samples="
+                      f"{AUTOTS['n_rand']}, training_iteration="
+                      f"{AUTOTS['epochs']})"],
+          "engine": "TPUSearchEngine(seed=42), default scheduler",
+          "trials_per_round": n_trials, "warmup_round_s": warmup_s,
+          "round_s": round_s, "best_round_s": best,
+          "trials_per_hour": n_trials / best * 3600.0,
+          "trials_per_hour_mean_round": n_trials / statistics.mean(round_s)
+          * 3600.0, "trials_last_round": rows, "winners": winners,
+          "rounds_off_seed_or_not_done": bad, "checks": checks,
+          "card": card})
+    if not all(checks.values()):
+        fail(f"AutoTS on the card failed its checks: {checks}, {bad}")
+    return df, rows
+
+
+def _zouwu_classes(name, ops):
+    """The class of a device event of a forecaster step: the copies, Adam,
+    cuDNN's RNN kernels, the convs, the GEMMs, else elementwise."""
+    if "dtod" in name:
+        return "d2d_copy"
+    if _is_copy(name):
+        return "h2d_copy"
+    ops_s = " ".join(ops).lower()
+    if "optimizer.step" in ops_s:
+        return "adam"
+    side = "backward" if "backward" in ops_s else "forward"
+    if "rnn" in ops_s or "lstm" in ops_s:
+        return f"cudnn_rnn_{side}"
+    if "convolution" in ops_s:
+        return f"conv_{side}"
+    if "gemm" in name or "cutlass" in name or "xmma" in name:
+        return f"gemm_{side}"
+    return f"elementwise_{side}"
+
+
+def zouwu_step_flops(module, x):
+    """A training step's matmul FLOPs (2 a multiply-add), from the shapes
+    one forward over the batch ``x`` meets: the forward, and its weight
+    and input gradients at the forward's count each (an upper count: the
+    first layer's input gradient is not needed). An LSTM cell does
+    4h (in + h) multiply-adds a row and step; a causal conv K Cin Cout a
+    row and kept step."""
+    from analytics_zoo_tpu_torch.zouwu.model import nets
+    counted = []
+
+    def hook(m, args, out):
+        a = args[0]
+        if isinstance(m, nets.OptimizedLSTMCell):
+            n_in = m.ii.in_features
+            counted.append(2.0 * a.shape[0] * a.shape[1] * 4 * m.features
+                           * (n_in + m.features))
+        elif isinstance(m, torch.nn.Conv1d):
+            counted.append(2.0 * a.shape[0] * a.shape[-1] * m.kernel_size[0]
+                           * m.in_channels * m.out_channels)
+        else:
+            counted.append(2.0 * a.numel() / m.in_features * m.in_features
+                           * m.out_features)
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (nets.OptimizedLSTMCell, torch.nn.Conv1d,
+                                 torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in handles:
+            h.remove()
+    fwd = sum(counted)
+    return {"forward_flops": fwd, "step_flops": 3.0 * fwd,
+            "parameters": sum(p.numel() for p in module.parameters())}
+
+
+def autots_profile_phase(card, df, rows):
+    """torch.profiler over AUTOTS_PROFILE_STEPS steps of one LSTM trial
+    and one TCN trial at batch 64 (the first batch-64 config of each
+    search), fed through the infeed pump after a warm epoch: device ms a
+    step by class, kernels a step, idle share, and the step's FLOPs
+    against the f32 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.orca.learn import utils as learn_utils
+    from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
+    from analytics_zoo_tpu_torch.zouwu.config.recipe import \
+        convert_bayes_config
+    from analytics_zoo_tpu_torch.zouwu.feature.time_sequence import \
+        TimeSequenceFeatureTransformer
+    trainer = AutoTSTrainer(horizon=AUTOTS["horizon"])
+    out = {}
+    n = AUTOTS_PROFILE_STEPS
+    for model in ("LSTM", "TCN"):
+        cfg = next(r["config"] for r in rows
+                   if r["model"] == model and r["config"]["batch_size"] == 64)
+        cfg = convert_bayes_config(cfg)
+        tsft = TimeSequenceFeatureTransformer(horizon=AUTOTS["horizon"])
+        x, y = tsft.fit_transform(df, past_seq_len=int(cfg["past_seq_len"]))
+        target = y[:, 0:1] if model == "LSTM" else y[..., None]
+        f = trainer._build_forecaster(model, cfg, tsft.feature_num, None)
+        f.fit(x, target, epochs=1, batch_size=64)
+        t0 = time.perf_counter()
+        stats = f.fit(x, target, epochs=1, batch_size=64, profile=True)[0]
+        epoch_s = time.perf_counter() - t0
+        eng = f.estimator.engine
+        it = learn_utils.BatchIterator({"x": (x,), "y": (target,)}, 64,
+                                       shuffle=True, device=f.device)
+        batches = it.epoch(prefetch=True)
+        try:
+            eng.train_batch(next(batches))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    eng.train_batch(next(batches))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            batches.close()
+        dev_events = _device_events(prof)
+        if not dev_events:
+            fail(f"the profiler saw no device time in the {model} steps")
+        stacks = _launching_ops(prof)
+        by_class, by_kernel = {}, {}
+        for evt in dev_events:
+            ms = evt.time_range.elapsed_us() / 1e3 / n
+            cls = _zouwu_classes(evt.name.lower(), stacks.get(evt.id) or [])
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+            tot, k = by_kernel.get(evt.name, (0.0, 0))
+            by_kernel[evt.name] = (tot + ms, k + 1)
+        busy = _busy_ms(dev_events) / n
+        flops = zouwu_step_flops(f.module, torch.from_numpy(x[:64]).to(
+            f.device))
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+        out[model] = {
+            "config": cfg,
+            "unprofiled_epoch": {
+                "steps": stats["profile"]["steps"], "fit_s": epoch_s,
+                "step_ms_median": statistics.median(
+                    stats["profile"]["step_ms"]),
+                "timing": "CUDA events around each step of a fit epoch, "
+                          "no profiler"},
+            "wall_ms_per_step": wall_ms / n,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy * n / wall_ms,
+            "kernels_per_step": len(dev_events) / n,
+            "device_ms_by_class_per_step": by_class,
+            "top_kernels_ms_per_step": [
+                {"name": k[:160], "ms": v[0], "launches": v[1] / n}
+                for k, v in top],
+            **flops, "bound_ms": flops["step_flops"] / PEAK_F32_CUDA_CORES
+            * 1e3,
+            "busy_fp32_share": flops["step_flops"] / (busy / 1e3)
+            / PEAK_F32_CUDA_CORES}
+    emit({"phase": "autots_profile", "batch": 64, "steps_profiled": n,
+          "fp32_peak_flops": PEAK_F32_CUDA_CORES, **out, "card": card})
+
+
+def _zouwu_forecasters(dev):
+    """The four forecasters at the AutoTS path's widths (6 features, past
+    50, horizon 1), dropout off, nets drawn from seed 0."""
+    from analytics_zoo_tpu_torch.zouwu.model import forecast as F
+    nets = {
+        "LSTM": ("LSTMNet", dict(input_dim=6, lstm_units=(32, 16),
+                                 dropouts=(0.0, 0.0))),
+        "TCN": ("TCNNet", dict(past_seq_len=50, future_seq_len=1,
+                               input_dim=6, num_channels=(16, 16, 16),
+                               kernel_size=3, dropout=0.0)),
+        "Seq2Seq": ("Seq2SeqNet", dict(input_dim=6, future_seq_len=1,
+                                       latent_dim=64)),
+        "MTNet": ("MTNetLite", dict(input_dim=6, ar_window=4, cnn_kernel=3,
+                                    cnn_channels=32, dropout=0.0))}
+    return {k: F.Forecaster.from_spec(spec, device=dev, lr=1e-3,
+                                      loss="mae" if k == "MTNet" else "mse")
+            for k, spec in nets.items()}
+
+
+def _zouwu_steps(dev, name, batches):
+    """Two Adam steps of forecaster ``name`` on ``dev``: each step's loss
+    and gradients, on the CPU."""
+    from analytics_zoo_tpu_torch.orca.learn.utils import Batch
+    f = _zouwu_forecasters(dev)[name]
+    eng = f.estimator.engine
+    eng.build()
+    losses, grads = [], []
+    for bx, by in batches:
+        losses.append(float(eng.train_batch(Batch(x=(bx,), y=(by,),
+                                                  w=None))))
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in f.module.named_parameters()})
+    return losses, grads
+
+
+def _floored_rel(got, want):
+    """The largest error of a gradient relative to its largest entry,
+    floored at 1e-3 of the largest gradient of the step (MTNetLite's
+    attention bias has a zero gradient in exact arithmetic)."""
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    return max((got[k] - want[k]).abs().max().item()
+               / max(want[k].abs().max().item(), floor) for k in want)
+
+
+def zouwu_vs_cpu_phase(card, df):
+    """Two Adam steps of each forecaster (LSTM, TCN, Seq2Seq, MTNet) at
+    batch 64 on the AutoTS windows, on the card and on the CPU from the
+    same weights (seed 0), dropout off, f32 with TF32 off (matmuls and
+    cuDNN, so cuDNN's LSTM runs in f32): losses and gradients held to
+    TOL_ZOUWU, against the control of the card's steps with the two
+    batches swapped, which must miss both."""
+    from analytics_zoo_tpu_torch.zouwu.feature.time_sequence import \
+        TimeSequenceFeatureTransformer
+    x, y = TimeSequenceFeatureTransformer(horizon=1).fit_transform(
+        df, past_seq_len=50)
+    rng = np.random.RandomState(17)
+    rows = [rng.choice(len(x), 64, replace=False) for _ in range(2)]
+    result, failed = {}, []
+    t0 = time.perf_counter()
+    for name in ("LSTM", "TCN", "Seq2Seq", "MTNet"):
+        target = y[:, :1] if name in ("LSTM", "MTNet") else y[..., None]
+        batches = [(x[r], target[r]) for r in rows]
+        card_run = _zouwu_steps("cuda", name, batches)
+        cpu_run = _zouwu_steps("cpu", name, batches)
+        control_run = _zouwu_steps("cuda", name, batches[::-1])
+
+        def readings(run):
+            return {"loss": max(abs(a - b) / abs(b) for a, b in
+                                zip(run[0], cpu_run[0])),
+                    "grad": max(_floored_rel(g, w) for g, w in
+                                zip(run[1], cpu_run[1]))}
+        got, control = readings(card_run), readings(control_run)
+        ok = (all(got[k] <= TOL_ZOUWU[k] for k in TOL_ZOUWU)
+              and all(control[k] > TOL_ZOUWU[k] for k in TOL_ZOUWU)
+              and all(map(math.isfinite, card_run[0])))
+        result[name] = {"loss_card": card_run[0], "loss_cpu": cpu_run[0],
+                        "readings": got, "control_readings": control,
+                        "ok": ok}
+        if not ok:
+            failed.append(name)
+    emit({"phase": "zouwu_vs_cpu", "batch": 64, "steps": 2,
+          "limits": TOL_ZOUWU,
+          "cudnn": {"enabled": torch.backends.cudnn.enabled,
+                    "allow_tf32": torch.backends.cudnn.allow_tf32,
+                    "version": torch.backends.cudnn.version()},
+          "control": "the card with the two batches swapped", **result,
+          "run_s": time.perf_counter() - t0, "card": card})
+    if failed:
+        fail(f"forecaster steps on the card disagree with the CPU: {failed}")
+
+
+def zouwu_real_data_phase(card):
+    """tests/test_zouwu_real_data.py::test_mtnet_lite_on_nyc_taxi's gate on
+    the card, over the NAB NYC-taxi subset in the repository: windows of
+    48 half-hours -> the next; MTNetForecaster(ar 8, cnn height 6, lr
+    5e-3) 60 epochs at batch 256 must beat persistence and the
+    day-seasonal naive on the 932 held-out windows; LSTMForecaster(lr
+    5e-3) 30 epochs, and MTNetLite's MSE must stay under 1.3 x the LSTM's
+    + 1e-3. Each of the REAL_DATA_SEEDS initial draws (the nets' init
+    seed) is held to the whole gate; the medians are reported."""
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.zouwu.model import forecast as F
+    here = os.path.dirname(os.path.abspath(__file__))
+    v = pd.read_csv(os.path.join(here, "tests", "resources",
+                                 "nyc_taxi_subset.csv"))["value"].to_numpy(
+        np.float32)
+    series = (v - v.mean()) / v.std()
+    past, n_train = 48, 3000
+    x = np.stack([series[i:i + past]
+                  for i in range(len(series) - past - 1)])[..., None]
+    y = np.stack([series[i + past:i + past + 1]
+                  for i in range(len(series) - past - 1)])
+    truth = y[n_train:].reshape(-1)
+    persistence = float(np.mean((x[n_train:, -1, 0] - truth) ** 2))
+    seasonal = float(np.mean((x[n_train:, -48, 0] - truth) ** 2))
+    draws = []
+    t0 = time.perf_counter()
+    for seed in REAL_DATA_SEEDS:
+        def build(spec):
+            return F.build_net(spec, seed)
+        mt = F.Forecaster(build(("MTNetLite", dict(
+            input_dim=1, ar_window=8, cnn_kernel=6, cnn_channels=32))),
+            loss="mae", lr=5e-3)
+        mt.fit(x[:n_train], y[:n_train], epochs=60, batch_size=256)
+        lstm = F.Forecaster(build(("LSTMNet", dict(
+            input_dim=1, lstm_units=(16, 8), dropouts=(0.2, 0.2)))),
+            loss="mse", lr=5e-3)
+        lstm.fit(x[:n_train], y[:n_train], epochs=30, batch_size=256)
+        draws.append({
+            "seed": seed,
+            "mtnet_mse": float(np.mean(
+                (mt.predict(x[n_train:]).reshape(-1) - truth) ** 2)),
+            "lstm_mse": float(np.mean(
+                (lstm.predict(x[n_train:]).reshape(-1) - truth) ** 2))})
+    mt_med = statistics.median(d["mtnet_mse"] for d in draws)
+    lstm_med = statistics.median(d["lstm_mse"] for d in draws)
+    checks = {
+        "every_mtnet_beats_persistence": all(
+            d["mtnet_mse"] < persistence for d in draws),
+        "every_mtnet_beats_seasonal": all(
+            d["mtnet_mse"] < seasonal for d in draws),
+        "every_mtnet_within_lstm_band": all(
+            d["mtnet_mse"] < 1.3 * d["lstm_mse"] + 1e-3 for d in draws),
+        "finite": all(math.isfinite(d["mtnet_mse"])
+                      and math.isfinite(d["lstm_mse"]) for d in draws)}
+    emit({"phase": "zouwu_real_data", "series": "nyc_taxi_subset.csv",
+          "windows_train": n_train, "windows_test": len(truth),
+          "persistence_mse": persistence, "seasonal_mse": seasonal,
+          "draws": draws, "mtnet_median_mse": mt_med,
+          "lstm_median_mse": lstm_med,
+          "band": "mtnet < 1.3 * lstm + 1e-3", "checks": checks,
+          "run_s": time.perf_counter() - t0, "card": card})
+    if not all(checks.values()):
+        fail(f"the NYC-taxi gate failed on the card: {checks}")
+
+
+def auto_estimator_search_phase(card):
+    """``AutoEstimator.from_torch`` over a small torch MLP on the card: lr
+    (grid of 2) x batch size (choice of 2), 2 samples each, 8 epochs of
+    4,096 rows of a noisy linear target; every trial ``done`` on cuda:0;
+    ``get_best_model().evaluate`` on the validation rows equals the best
+    trial's score exactly, and beats the mean predictor."""
+    from analytics_zoo_tpu_torch.automl import AutoEstimator, hp
+    rng = np.random.RandomState(21)
+    w = rng.randn(16).astype(np.float32)
+
+    def rows(n):
+        x = rng.randn(n, 16).astype(np.float32)
+        y = (x @ w + 0.1 * rng.randn(n)).astype(np.float32)[:, None]
+        return {"x": x, "y": y}
+    data, val = rows(4096), rows(1024)
+
+    def creator(config):
+        torch.manual_seed(0)
+        return torch.nn.Sequential(
+            torch.nn.Linear(16, config["hidden"]), torch.nn.ReLU(),
+            torch.nn.Linear(config["hidden"], 1))
+    auto = AutoEstimator.from_torch(model_creator=creator,
+                                    loss=torch.nn.MSELoss(),
+                                    optimizer="adam")
+    t0 = time.perf_counter()
+    auto.fit(data, epochs=8, validation_data=val, metric="mse",
+             n_sampling=2, search_space={
+                 "lr": hp.grid_search([1e-2, 1e-4]),
+                 "hidden": hp.choice([32, 64]),
+                 "batch_size": hp.choice([64, 128])})
+    fit_s = time.perf_counter() - t0
+    trials = auto.get_trials()
+    best = auto.best_trial
+    est = auto.get_best_model()
+    res = est.evaluate(val, batch_size=best.config["batch_size"],
+                       verbose=False)
+    mean_mse = float(np.mean((val["y"] - data["y"].mean()) ** 2))
+    checks = {
+        "all_done_on_cuda0": len(trials) == 4 and all(
+            t.state == "done" and t.device == "cuda:0" for t in trials),
+        "best_model_evaluates_to_best_score": res["mse"] == best.metric_value,
+        "beats_mean_predictor": res["mse"] < mean_mse,
+        "on_card": _on_card(est.module)}
+    emit({"phase": "auto_estimator_search", "fit_s": fit_s,
+          "trials": [{"config": t.config, "mse": t.metric_value,
+                      "state": t.state, "device": t.device,
+                      "seconds": t.duration_s} for t in trials],
+          "best_config": auto.get_best_config(),
+          "best_eval": res, "mean_predictor_mse": mean_mse,
+          "summary": auto.search_summary(), "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"AutoEstimator search on the card failed its checks: {checks}")
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -2672,7 +3203,7 @@ def _spread(xs):
 
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches):
+                 fraud_launches, autots_launches):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
     q/k/v strided views of the fused projection): the kernel's device time
     (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
@@ -2777,13 +3308,15 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
             entry["launches_by_path"] = {
                 "serve": serve_launches,
                 "train": train_launches["flash_fwd"],
-                "fraud": fraud_launches["flash_fwd"]}
+                "fraud": fraud_launches["flash_fwd"],
+                "autots": autots_launches["flash_fwd"]}
             entry["library"] = "scaled_dot_product_attention forward"
             entry["library_timing"] = "CUDA-graph replays, in turns"
             entry["library_ms_eager"] = _spread(fwd["library"])
         else:
             entry["launches_by_path"] = {"train": launches,
-                                         "fraud": fraud_launches[name]}
+                                         "fraud": fraud_launches[name],
+                                         "autots": autots_launches[name]}
             entry["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
             entry["library"] = ("scaled_dot_product_attention backward "
                                 "(autograd.grad of one forward output)")
@@ -2852,8 +3385,22 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     optimizers_vs_cpu_phase(card)
+    for fn in kernels:
+        fn.launches = 0
+    root = tempfile.mkdtemp(prefix="autots-")
+    try:
+        df, rows = autots_trials_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    autots_launches = {fn.__name__: fn.launches for fn in kernels}
+    for fn, n in zip(kernels, kept):
+        fn.launches = n
+    autots_profile_phase(card, df, rows)
+    zouwu_vs_cpu_phase(card, df)
+    zouwu_real_data_phase(card)
+    auto_estimator_search_phase(card)
     kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches)
+                 fraud_launches, autots_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

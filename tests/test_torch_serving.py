@@ -125,7 +125,15 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "pipeline.api.keras.layers.noise", "pipeline.api.autograd",
     "pipeline.nnframes", "pipeline.nnframes.nn_classifier",
     "orca.data.pandas", "orca.data.pandas.preprocessing",
-    "utils.tensorboard", "utils.protostream")]
+    "utils.tensorboard", "utils.protostream",
+    "automl", "automl.hp", "automl.model_builder", "automl.auto_estimator",
+    "automl.search", "automl.search.bayes", "automl.search.search_engine",
+    "automl.scheduler", "automl.scheduler.lease",
+    "zouwu", "zouwu.config", "zouwu.config.recipe", "zouwu.feature",
+    "zouwu.feature.time_sequence", "zouwu.preprocessing",
+    "zouwu.preprocessing.impute", "zouwu.model", "zouwu.model.nets",
+    "zouwu.model.forecast", "zouwu.model.anomaly", "zouwu.autots",
+    "zouwu.autots.forecast")]
 
 
 def test_port_imports_no_jax():
