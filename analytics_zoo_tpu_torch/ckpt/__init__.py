@@ -12,14 +12,17 @@ atomic, content-addressed checkpointing in the on-disk format
 * **Async saves** (:class:`.plane.CheckpointPlane`): the loop pays the
   device-to-host snapshot; a writer thread hashes and writes behind it.
 * **Retention and encryption at rest** as in the JAX package.
-
-Not ported yet: the serving hot-reload watcher (``ckpt/watch.py``).
+* **Serving hot-reload** (:class:`.watch.CheckpointWatcher`): watch a
+  checkpoint root and hand each newly committed step to a live
+  ``InferenceModel``.
 """
 
 from .format import (is_committed, is_plane_dir, load_checkpoint_dir,
                      read_manifest)
 from .plane import CheckpointPlane, parse_step
 from .stats import CkptStats
+from .watch import CheckpointWatcher
 
-__all__ = ["CheckpointPlane", "CkptStats", "is_committed", "is_plane_dir",
-           "load_checkpoint_dir", "parse_step", "read_manifest"]
+__all__ = ["CheckpointPlane", "CheckpointWatcher", "CkptStats",
+           "is_committed", "is_plane_dir", "load_checkpoint_dir",
+           "parse_step", "read_manifest"]

@@ -101,7 +101,9 @@ class _SkeletonPickler(pickle._Pickler):
 
 
 # fields of the optax states of the ported optimizers; an unknown class
-# from optax, flax or jax becomes a tuple of its constructor arguments
+# from optax, flax, jax or the JAX package becomes a tuple of its
+# constructor arguments (a JAX serving checkpoint's pickled flax module
+# among them: the port adopts its weights and never runs the module)
 _KNOWN_FIELDS = {
     "InjectStatefulHyperparamsState": ("count", "hyperparams",
                                        "hyperparams_states", "inner_state"),
@@ -109,7 +111,7 @@ _KNOWN_FIELDS = {
     "TraceState": ("trace",),
     "EmptyState": (),
 }
-_FOREIGN_ROOTS = ("optax", "flax", "jax")
+_FOREIGN_ROOTS = ("optax", "flax", "jax", "analytics_zoo_tpu")
 _stand_ins: Dict[Tuple[str, str], type] = {}
 
 
@@ -141,7 +143,7 @@ def stand_in(module: str, name: str) -> type:
 class _SkeletonUnpickler(pickle.Unpickler):
     """Resolves a skeleton's globals without importing the JAX stack: the
     leaf placeholder of either package to :class:`_LeafRef`, classes of
-    optax, flax and jax to :func:`stand_in` classes."""
+    optax, flax, jax and the JAX package to :func:`stand_in` classes."""
 
     def find_class(self, module, name):
         if name == "_LeafRef" and module in (

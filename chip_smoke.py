@@ -108,6 +108,26 @@ device leases), it
 * searches lr and batch size for a torch MLP through
   ``AutoEstimator.from_torch`` (``auto_estimator_search``).
 
+Then, with SSD object detection served through Cluster Serving, BASELINE
+#5 (``examples/serving/object_detection_serving.py``, bench.py's
+``bench_serving_od``: SSD300 at 300 px, 21 classes, bf16 trunk, batch 64,
+100 detections; seeded random weights and images), it
+
+* serves 512 f32 requests over ``InMemoryBroker`` and 256 uint8 requests
+  over ``RedisBroker`` on ``MiniRedisServer`` through a prologue on the
+  card, then ``bench_serving_od``'s ``ssd_tiny`` shape (128 px, 3
+  classes) over both, through ``ObjectDetector.as_inference_model`` and
+  ``ClusterServing`` (``od_serve``; no flash kernel on this path);
+* times a served batch's trunk against its decode + NMS and profiles it:
+  idle share, kernels a batch, the NMS loop's share, MFU (``od_profile``);
+* holds loc/conf on the card against the CPU in f32, the postprocessor on
+  the same loc/conf, the bf16 trunk against f32 and ``quantize()``'s int8
+  weights against f32 (``od_vs_cpu``);
+* trains ``ssd_tiny`` through ``ObjectDetector.fit`` while a live server
+  watches the checkpoint root, and checks the hot swap, the served
+  answers against ``predict_image_set`` and encrypted models
+  (``od_hot_reload``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -351,6 +371,50 @@ TOL_ZOUWU = {"loss": TOL_STEP_LOSS, "grad": TOL_STEP_GRAD}
 # dropout draws) every seed passed: MTNetLite 0.0251-0.0294 against the
 # LSTM's 0.0219-0.0273 (H100 80GB HBM3, 700 W).
 REAL_DATA_SEEDS = (0, 1, 2, 3, 4)
+# SSD object detection served through ObjectDetector.as_inference_model ->
+# ClusterServing, BASELINE #5 (examples/serving/object_detection_serving.py,
+# bench.py's bench_serving_od): SSD300 as ssd.py's ssd_300 defines it (300
+# px, widths 64 -> 512, the 20 PASCAL classes and background, 8,732
+# priors), the trunk in bf16 on the card, decode and NMS in f32, batch 64
+# under a 5 ms batch timeout, 100 detections an image; seeded random
+# weights and images (neither VOC data nor trained weights are in the
+# repository). Then bench_serving_od's own shape: ssd_tiny at 128 px, 3
+# classes, batch 64, 512 requests, 20 detections.
+OD = dict(size=300, batch=64, max_det=100, requests=512,
+          redis_requests=256, timeout_ms=5)
+OD_TINY = dict(size=128, classes=("a", "b", "c"), batch=64, requests=512,
+               max_det=20)
+OD_PROFILE_BATCHES = 4
+OD_CPU_BATCH = 8
+# Card vs CPU SSD300 (eval mode, 8 images): loc/conf relative to the
+# largest. f32 with TF32 off on both: the same convs summed in another
+# order; the control, the card's bf16 trunk against the CPU's f32, must
+# miss. The postprocessor on the same (the CPU's) loc/conf on both sides:
+# labels and order identical, scores and normalized boxes within
+# TOL_OD_POST (exp and softmax a few f32 ulps apart). The bf16 trunk
+# against the card's f32 (through the servable's cast): bf16 rounding
+# through 9 levels; its control, the bf16 trunk on the batch in reverse
+# order, must miss. quantize()'s int8 weights against f32: loc/conf within
+# TOL_OD_INT8, the control (the int8 values left un-dequantized) must miss;
+# the card's dequantized weights against a plain per-output-channel
+# quantization on the CPU within TOL_OD_INT8_DEQUANT of the largest weight
+# (f32 ulps), the control (scales over the input channels) must miss.
+TOL_OD_F32 = 1e-4
+TOL_OD_POST = 1e-5
+TOL_OD_BF16 = 5e-2
+TOL_OD_INT8 = 0.1
+TOL_OD_INT8_DEQUANT = 1e-6
+# Served SSD answers against the served model's predict on the same images
+# in chunks of the batch (_od_hold): a served batch padded to another
+# bucket may run other conv algorithms, so its bf16 activations round
+# apart; scores (softmax, ~0.05 on random weights) and normalized boxes.
+TOL_OD_SERVED_SCORE = 2e-3
+TOL_OD_SERVED_BOX = 1e-2
+# Hot reload: ssd_tiny at 64 px on 32 toy squares, 6 epochs at batch 8; the
+# served answers against the trained model's predict_image_set, pixels
+# (batches of other sizes pick other conv algorithms: f32 ulps).
+OD_RELOAD = dict(images=32, batch=8, epochs=6)
+TOL_OD_RELOAD = 1e-2
 
 
 def emit(obj):
@@ -3114,6 +3178,615 @@ def auto_estimator_search_phase(card):
         fail(f"AutoEstimator search on the card failed its checks: {checks}")
 
 
+# --- SSD object-detection serving, BASELINE #5 -------------------------------
+
+def _od_images(n, size, seed):
+    """``n`` seeded f32 images in [0, 1), ``(n, size, size, 3)``."""
+    return np.random.RandomState(seed).rand(n, size, size, 3).astype(
+        np.float32)
+
+
+def _od_detector(size, classes, model_type, seed=0, device=None):
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    torch.manual_seed(seed)
+    return ObjectDetector(class_names=classes, image_size=size,
+                          model_type=model_type, max_gt=4, device=device)
+
+
+def _od_answers_ok(res, max_det, num_classes):
+    """Every answer a finite ``(max_det, 6)`` detection array: labels -1 or
+    1..num_classes-1, scores in [0, 1] in descending order, boxes in
+    [0, 1]. Returns the number of bad answers."""
+    bad = 0
+    for v in res:
+        a = np.asarray(v)
+        if a.shape != (max_det, 6) or not np.isfinite(a).all():
+            bad += 1
+            continue
+        lab, sc = a[:, 0], a[:, 1]
+        ok = (np.isin(lab, [-1] + list(range(1, num_classes))).all()
+              and (sc >= 0).all() and (sc <= 1).all()
+              and (np.diff(sc) <= 0).all()
+              and (a[:, 2:] >= 0).all() and (a[:, 2:] <= 1).all())
+        bad += not ok
+    return bad
+
+
+def _od_leg(model, broker, client, imgs, batch, max_det, num_classes,
+            warm=64):
+    """One ``ClusterServing`` leg: start with every bucket up to ``batch``
+    warmed, a warm-up burst, then ``len(imgs)`` requests enqueued as one
+    burst and dequeued. Returns records/s, request latency percentiles
+    (enqueue to the engine's ``t_done``), the engine's stages and the
+    number of bad answers."""
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
+                                                 OutputQueue)
+    from analytics_zoo_tpu_torch.serving.codecs import decode_payload
+    serving = ClusterServing(model, queue=broker, batch_size=batch,
+                             batch_timeout_ms=OD["timeout_ms"]).start(
+        example=imgs[:1])
+    try:
+        iq, oq = InputQueue(**client), OutputQueue(**client)
+        oq.dequeue([iq.enqueue(f"warm-{i}", t=imgs[i % len(imgs)])
+                    for i in range(warm)], timeout_s=300)
+        serving.reset_metrics()
+        sent = {}
+        t0 = time.perf_counter()
+        for i in range(len(imgs)):
+            sent[iq.enqueue(f"r-{i}", t=imgs[i])] = time.time()
+        answers, done = [], {}
+        for uri in sent:
+            raw = oq.broker.get_result(uri, 300)
+            if raw is None:
+                fail(f"no answer for {uri}")
+            data, meta = decode_payload(raw)
+            answers.append(data)
+            done[uri] = meta.get("t_done", float("nan"))
+        dt = time.perf_counter() - t0
+        stages = serving.metrics()["stages"]
+    finally:
+        serving.stop()
+    lat = np.array([done[u] - sent[u] for u in sent]) * 1e3
+    return {"requests": len(imgs), "seconds": dt,
+            "records_per_s": len(imgs) / dt,
+            "request_latency_ms": {
+                "p50": float(np.percentile(lat, 50)),
+                "p95": float(np.percentile(lat, 95)),
+                "p99": float(np.percentile(lat, 99)),
+                "max": float(lat.max())},
+            "stages": stages,
+            "bad_answers": _od_answers_ok(answers, max_det, num_classes),
+            "answers": np.stack(answers)}
+
+
+def _od_hold(got, want, tol_score, tol_box, threshold=0.05):
+    """Served answers ``got`` against ``want``, the same images' detections
+    from the served model's ``predict`` in batch-sized chunks, image by
+    image. Random weights put many scores within a few ulps of the score
+    threshold and of the ``max_detections`` cut, where the conv algorithm a
+    batch's bucket picks decides which candidates survive. So a row is held
+    when its score clears its answer's floor (the threshold, or the lowest
+    score of a full answer) by 2 * ``tol_score``; it must then have a row
+    in the other answer with its label, a score within ``tol_score`` and a
+    box within ``tol_box``. Returns the share of identical answers, the
+    rows held and ``worst``, the largest distance of a held row to its
+    nearest counterpart in units of the limits (1 at the limit; inf where
+    no row has its label)."""
+    identical, held, worst = 0, 0, 0.0
+    for g, w in zip(got, want):
+        identical += bool(np.array_equal(g, w))
+        for a, b in ((w, g), (g, w)):
+            valid = a[:, 0] >= 1
+            floor = a[valid, 1].min() if valid.all() else threshold
+            rows = a[valid & (a[:, 1] >= floor + 2 * tol_score)]
+            if not len(rows):
+                continue
+            held += len(rows)
+            dist = np.maximum(
+                np.abs(rows[:, None, 1] - b[None, :, 1]) / tol_score,
+                np.abs(rows[:, None, 2:] - b[None, :, 2:]).max(-1)
+                / tol_box)
+            dist[rows[:, None, 0] != b[None, :, 0]] = np.inf
+            worst = max(worst, float(dist.min(1).max()))
+    return {"identical_share": identical / len(got), "rows_held": held,
+            "worst": worst}
+
+
+def _od_predict_chunks(model, imgs, batch):
+    """``model.predict`` over ``imgs`` in chunks of ``batch``."""
+    return np.concatenate([model.predict(imgs[i:i + batch])
+                           for i in range(0, len(imgs), batch)])
+
+
+def od_serve_phase(card):
+    """BASELINE #5 through the user's entry points: ``ObjectDetector(...)
+    .as_inference_model(max_detections=...)`` (the bf16 trunk on the card,
+    decode and NMS in f32) served by ``ClusterServing(batch_size=64,
+    batch_timeout_ms=5).start(example=...)``. SSD300 at 300 px and 21
+    classes (seeded random weights): 512 f32 requests over
+    ``InMemoryBroker``, then 256 uint8 requests over ``RedisBroker`` on
+    ``MiniRedisServer`` through a ``rescale(1/255)`` prologue on the card;
+    then ``bench_serving_od``'s shape (``ssd_tiny``, 128 px, 3 classes,
+    20 detections) over both brokers. Every answer must be a well-formed
+    ``[max_detections, 6]`` array, not an error payload, and each leg's
+    answers are held against the served model's own ``predict`` on the same
+    images in chunks of the batch size (``_od_hold``, TOL_OD_SERVED_*),
+    with a control (each answer against the next image's) that must
+    miss."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        PASCAL_CLASSES
+    from analytics_zoo_tpu_torch.orca.learn.prologue import rescale
+    from analytics_zoo_tpu_torch.serving import (InMemoryBroker,
+                                                 MiniRedisServer,
+                                                 RedisBroker)
+    legs, checks, refs = {}, {}, {}
+    det = _od_detector(OD["size"], PASCAL_CLASSES, "ssd300")
+    model = det.as_inference_model(max_detections=OD["max_det"])
+    checks["ssd300_on_card_bf16"] = (
+        model.device.type == "cuda" and _on_card(model.module)
+        and model.module.serve_dtype == torch.bfloat16)
+    imgs = _od_images(OD["requests"], OD["size"], seed=10)
+    nc = len(PASCAL_CLASSES) + 1
+    broker = InMemoryBroker()
+    legs["ssd300_memory_f32"] = _od_leg(
+        model, broker, {"queue": broker}, imgs, OD["batch"], OD["max_det"],
+        nc)
+    refs["ssd300_memory_f32"] = _od_predict_chunks(model, imgs, OD["batch"])
+    srv = MiniRedisServer(port=0).start()
+    try:
+        raw = (imgs[:OD["redis_requests"]] * 255).astype(np.uint8)
+        umodel = det.as_inference_model(
+            max_detections=OD["max_det"]).set_prologue(rescale(1 / 255))
+        client = {"host": srv.host, "port": srv.port, "name": "od300"}
+        legs["ssd300_redis_uint8"] = _od_leg(
+            umodel, RedisBroker(srv.host, srv.port, stream="od300"), client,
+            raw, OD["batch"], OD["max_det"], nc)
+        refs["ssd300_redis_uint8"] = _od_predict_chunks(umodel, raw,
+                                                        OD["batch"])
+        # the prologue ran on the card: the served uint8 path gives what
+        # the f32 path gives on the host-rescaled images, batch for batch
+        probe = raw[:OD["batch"]]
+        checks["prologue_as_host_rescale"] = bool(np.array_equal(
+            umodel.predict(probe), model.predict(rescale(1 / 255).host(
+                probe))))
+        tiny = _od_detector(OD_TINY["size"], OD_TINY["classes"], "ssd_tiny")
+        tmodel = tiny.as_inference_model(max_detections=OD_TINY["max_det"])
+        timgs = _od_images(OD_TINY["requests"], OD_TINY["size"], seed=11)
+        tnc = len(OD_TINY["classes"]) + 1
+        broker = InMemoryBroker()
+        legs["tiny_memory_f32"] = _od_leg(
+            tmodel, broker, {"queue": broker}, timgs, OD_TINY["batch"],
+            OD_TINY["max_det"], tnc)
+        refs["tiny_memory_f32"] = refs["tiny_redis_f32"] = \
+            _od_predict_chunks(tmodel, timgs, OD_TINY["batch"])
+        client = {"host": srv.host, "port": srv.port, "name": "odtiny"}
+        legs["tiny_redis_f32"] = _od_leg(
+            tmodel, RedisBroker(srv.host, srv.port, stream="odtiny"),
+            client, timgs, OD_TINY["batch"], OD_TINY["max_det"], tnc)
+    finally:
+        srv.stop()
+    held = {}
+    for name, leg in legs.items():
+        checks[f"{name}_all_answers_ok"] = leg["bad_answers"] == 0
+        got, want = leg.pop("answers"), refs[name]
+        held[name] = _od_hold(got, want, TOL_OD_SERVED_SCORE,
+                              TOL_OD_SERVED_BOX)
+        # the control: each answer against the next image's reference
+        held[name]["control_shifted_worst"] = _od_hold(
+            got, np.roll(want, 1, 0), TOL_OD_SERVED_SCORE,
+            TOL_OD_SERVED_BOX)["worst"]
+        checks[f"{name}_as_predict"] = (held[name]["rows_held"] > 0
+                                        and held[name]["worst"] <= 1.0)
+        checks[f"{name}_control_misses"] = \
+            held[name]["control_shifted_worst"] > 1.0
+    emit({"phase": "od_serve",
+          "config": {"ssd300": OD, "tiny": OD_TINY},
+          "legs": legs, "held_against_predict": held,
+          "limits": {"score": TOL_OD_SERVED_SCORE, "box": TOL_OD_SERVED_BOX},
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"object-detection serving failed its checks: {checks}")
+    return model, imgs[:OD["batch"]]
+
+
+def ssd_forward_flops(module, x):
+    """The FLOPs of one SSD forward over ``x`` from its conv shapes, 2 a
+    multiply-add (every conv of the trunk and the heads; BatchNorm, ReLU
+    and the bias adds are not counted)."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection.ssd import \
+        SameConv
+    total = []
+
+    def hook(mod, _inp, out):
+        cout, cin, kh, kw = mod.weight.shape
+        total.append(2.0 * out.numel() * cin * kh * kw)
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, SameConv)]
+    try:
+        with torch.inference_mode():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total), len(total)
+
+
+def _od_predict_under_load(model, imgs, rounds=3):
+    """Wall ms of ``model.predict`` on the batch (the engine's inference
+    stage: H2D, trunk, decode, NMS, D2H), alone and beside one host thread
+    that encodes request payloads as a burst client in the same process
+    does: the eager NMS loop takes the GIL for each of its ~800 launches."""
+    import threading
+
+    from analytics_zoo_tpu_torch.serving.codecs import encode_payload
+
+    def median_ms():
+        out = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            model.predict(imgs)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+    alone = median_ms()
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            encode_payload(imgs[0], meta={"uri": "load"})
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        loaded = median_ms()
+    finally:
+        stop.set()
+        th.join()
+    return {"alone": alone, "beside_an_encoding_thread": loaded}
+
+
+def od_profile_phase(model, imgs, card):
+    """Where a served batch of 64 SSD300 images spends its time: CUDA-event
+    time of the bf16 trunk alone and of the whole servable (trunk, decode,
+    top-k, NMS: JAX's ``trunk_records_per_sec`` and
+    ``decode_nms_ms_per_batch``), then torch.profiler over
+    OD_PROFILE_BATCHES batches: device busy time, idle share, kernels a
+    batch, and the share of them the NMS loop launches (``nms`` alone on
+    the batch's candidates); FLOPs from the conv shapes and MFU against the
+    bf16 dense peak. And ``predict``'s wall time alone and beside a host
+    thread encoding payloads (``_od_predict_under_load``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        decode_detections, nms)
+    serv = model.module
+    x = torch.from_numpy(imgs).to("cuda")
+    xb = x.to(torch.bfloat16)
+
+    def trunk():
+        return serv.trunk(xb)
+
+    def whole():
+        return serv(x)
+    reps = 10
+    with torch.inference_mode():
+        loc, conf = trunk()
+        for _ in range(3):
+            whole()
+        torch.cuda.synchronize()
+        trunk_ms = [_span_ms(_eager(trunk, reps), reps) for _ in range(5)]
+        whole_ms = [_span_ms(_eager(whole, reps), reps) for _ in range(5)]
+        post = partial(decode_detections, loc, conf, serv.prior_boxes,
+                       max_detections=serv.max_detections)
+        post_ms = [_span_ms(_eager(post, reps), reps) for _ in range(5)]
+        # the NMS loop alone, on candidate sets of the batch's shape
+        cand = torch.rand(len(imgs), 256, 4, device="cuda")
+        cand = torch.cat([cand[..., :2], cand[..., :2] + cand[..., 2:]], -1)
+        scores = torch.rand(len(imgs), 256, device="cuda")
+
+        def counted(fn, calls):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / calls
+            ev = _device_events(prof)
+            return ev, wall
+        n = OD_PROFILE_BATCHES
+        ev_whole, wall_whole = counted(whole, n)
+        ev_trunk, _ = counted(trunk, n)
+        ev_nms, _ = counted(lambda: nms(cand, scores, 0.45, 100), n)
+    if not ev_whole or not ev_trunk:
+        fail("the profiler saw no device time in the served batch")
+    host = _od_predict_under_load(model, imgs)
+    busy = _busy_ms(ev_whole) / n
+    flops, n_convs = ssd_forward_flops(serv, xb)
+    t_trunk = statistics.median(trunk_ms)
+    t_whole = statistics.median(whole_ms)
+    by_kernel = {}
+    for e in ev_whole:
+        tot, c = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (tot + e.time_range.elapsed_us() / 1e3 / n,
+                             c + 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    kernels_batch = len(ev_whole) / n
+    emit({"phase": "od_profile", "batch": len(imgs),
+          "image_size": OD["size"], "trunk_dtype": "bfloat16",
+          "trunk_ms": t_trunk, "trunk_ms_spread": _spread(trunk_ms),
+          "trunk_records_per_sec": len(imgs) / t_trunk * 1e3,
+          "trunk_decode_nms_ms": t_whole,
+          "whole_ms_spread": _spread(whole_ms),
+          "decode_nms_ms_per_batch": t_whole - t_trunk,
+          "postprocess_alone_ms": statistics.median(post_ms),
+          "records_per_sec_of_batches": len(imgs) / t_whole * 1e3,
+          "profiled_wall_ms_per_batch": wall_whole,
+          "device_busy_ms_per_batch": busy,
+          "device_idle_share": 1.0 - busy / wall_whole,
+          "trunk_device_busy_ms": _busy_ms(ev_trunk) / n,
+          "kernels_per_batch": kernels_batch,
+          "trunk_kernels_per_batch": len(ev_trunk) / n,
+          "nms_loop_kernels_per_batch": len(ev_nms) / n,
+          "nms_loop_share_of_kernels": len(ev_nms) / n / kernels_batch,
+          "top_kernels_ms_per_batch": [
+              {"name": k[:120], "ms": v[0], "launches": v[1] / n}
+              for k, v in top],
+          "predict_wall_ms": host,
+          "convs": n_convs, "trunk_flops_per_batch": flops,
+          "trunk_flops_per_image": flops / len(imgs),
+          "bound_ms": flops / PEAK_BF16 * 1e3,
+          "mfu_trunk": flops / (t_trunk / 1e3) / PEAK_BF16,
+          "mfu_batch": flops / (t_whole / 1e3) / PEAK_BF16,
+          "card": card})
+
+
+def _od_rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def od_vs_cpu_phase(card):
+    """SSD300 from the same seeded weights (running statistics perturbed
+    from numpy) on the card and on the CPU, OD_CPU_BATCH images, eval mode:
+    loc/conf in f32 (TF32 off on both) against the CPU within TOL_OD_F32,
+    the control (the card's bf16 trunk) missing it; the postprocessor on
+    the CPU's loc/conf on both sides: the same labels in the same order,
+    scores and boxes within TOL_OD_POST; the bf16 trunk against the card's
+    f32 within TOL_OD_BF16, the control (the bf16 trunk on the batch in
+    reverse order against f32 in order) missing it; and ``quantize()``'s
+    weight-only int8 against f32: loc/conf within TOL_OD_INT8 and the
+    dequantized weights as a plain per-output-channel quantization, each
+    with a control that must miss; detections' agreement reported."""
+    import copy
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        SSDServable, decode_detections, ssd_300)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    torch.manual_seed(3)
+    cpu_net = ssd_300(21).eval()
+    rng = np.random.RandomState(3)
+    with torch.no_grad():
+        for name, b in cpu_net.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.from_numpy(rng.randn(*b.shape).astype(
+                    np.float32) * 0.1))
+            elif name.endswith("running_var"):
+                b.copy_(torch.from_numpy(rng.rand(*b.shape).astype(
+                    np.float32) + 0.5))
+    card_net = copy.deepcopy(cpu_net).to("cuda")
+    # the served trunk: the servable casts the f32 input to bf16
+    card_bf16 = SSDServable.of(cpu_net, serve_dtype="bfloat16").to("cuda")
+    x = torch.from_numpy(_od_images(OD_CPU_BATCH, OD["size"], seed=12))
+    xc = x.to("cuda")
+    with torch.inference_mode():
+        cl, cc = cpu_net(x)
+        gl, gc = card_net(xc)
+        bl, bc = card_bf16.trunk(xc)
+        rl, rc = card_bf16.trunk(xc.flip(0))
+        post_cpu = decode_detections(cl, cc, cpu_net.priors())
+        post_card = decode_detections(cl.to("cuda"), cc.to("cuda"),
+                                      cpu_net.priors()).cpu()
+    readings = {
+        "f32_loc": _od_rel(gl, cl), "f32_conf": _od_rel(gc, cc),
+        "f32_control_bf16_loc": _od_rel(bl, cl),
+        "f32_control_bf16_conf": _od_rel(bc, cc),
+        "bf16_loc": _od_rel(bl, gl), "bf16_conf": _od_rel(bc, gc),
+        "bf16_control_reversed_loc": _od_rel(rl, gl),
+        "bf16_control_reversed_conf": _od_rel(rc, gc),
+        "post_scores_boxes": float((post_card[..., 1:] -
+                                    post_cpu[..., 1:]).abs().max()),
+        "post_detections": int((post_cpu[..., 0] > 0).sum())}
+    # weight-only int8 through InferenceModel.quantize, the trunk in f32
+    serv = SSDServable.of(cpu_net, serve_dtype="float32")
+    im = InferenceModel(device="cuda").load_module(serv)
+    f32_dets = im.predict(x.numpy())
+    im.quantize()
+    q_dets = im.predict(x.numpy())
+    # controls: the int8 values left un-dequantized (every scale 1), and
+    # the card's dequantized weights against a plain per-output-channel
+    # quantization of the f32 weights, computed on the CPU (the card divides
+    # by a scalar as a multiply by its reciprocal, an ulp from the host's
+    # division, which moves values at a rounding tie a whole step), whose
+    # control takes the scales over the input channels instead
+    raw_int8 = copy.deepcopy(im.module)
+    for name, b in raw_int8.named_buffers():
+        if name.endswith("_scale"):
+            b.fill_(1.0)
+    deq_err, deq_ctrl = 0.0, float("inf")
+    with torch.inference_mode():
+        ql, qc = im.module.trunk(xc)
+        ul, uc = raw_int8.trunk(xc)
+        f32_weights = dict(cpu_net.named_modules())
+        for name, mod in im.module.named_modules():
+            if not getattr(mod, "_int8_weights", ()):
+                continue
+            w = f32_weights[name].weight
+            for axes, into in (((1, 2, 3), "err"), ((0, 2, 3), "ctrl")):
+                sc = w.abs().amax(dim=axes, keepdim=True) / 127.0
+                sc = torch.where(sc == 0, 1.0, sc)
+                plain = torch.clamp(torch.round(w / sc), -127, 127) * sc
+                d = float((mod.weight - plain.to(mod.weight.device))
+                          .abs().max() / w.abs().max())
+                if into == "err":
+                    deq_err = max(deq_err, d)
+                else:
+                    deq_ctrl = min(deq_ctrl, d)
+    readings.update({
+        "int8_loc": _od_rel(ql, gl), "int8_conf": _od_rel(qc, gc),
+        "int8_control_undequantized_loc": _od_rel(ul, gl),
+        "int8_control_undequantized_conf": _od_rel(uc, gc),
+        "int8_dequantized_vs_plain": deq_err,
+        "int8_dequantized_control_input_axis": deq_ctrl,
+        "int8_quantized_tensors": sum(
+            1 for n, _ in im.module.named_buffers()
+            if n.endswith("_int8")),
+        "int8_same_label_rows": float(np.mean(
+            q_dets[..., 0] == f32_dets[..., 0])),
+        "int8_valid_detections": int((q_dets[..., 0] > 0).sum()),
+        "f32_valid_detections": int((f32_dets[..., 0] > 0).sum()),
+        "int8_sorted_score_max_diff": float(np.abs(
+            np.sort(q_dets[..., 1], 1) - np.sort(f32_dets[..., 1],
+                                                 1)).max())})
+    r = readings
+    checks = {
+        "f32_within": max(r["f32_loc"], r["f32_conf"]) <= TOL_OD_F32,
+        "f32_control_misses": min(r["f32_control_bf16_loc"],
+                                  r["f32_control_bf16_conf"]) > TOL_OD_F32,
+        "post_same_labels_and_order": bool(torch.equal(
+            post_card[..., 0], post_cpu[..., 0])),
+        "post_within": r["post_scores_boxes"] <= TOL_OD_POST,
+        "bf16_within": max(r["bf16_loc"], r["bf16_conf"]) <= TOL_OD_BF16,
+        "bf16_control_misses": min(
+            r["bf16_control_reversed_loc"],
+            r["bf16_control_reversed_conf"]) > TOL_OD_BF16,
+        "int8_within": max(r["int8_loc"], r["int8_conf"]) <= TOL_OD_INT8,
+        "int8_control_misses": min(
+            r["int8_control_undequantized_loc"],
+            r["int8_control_undequantized_conf"]) > TOL_OD_INT8,
+        "int8_dequantized_as_plain":
+            r["int8_dequantized_vs_plain"] <= TOL_OD_INT8_DEQUANT,
+        "int8_dequantized_control_misses":
+            r["int8_dequantized_control_input_axis"] > TOL_OD_INT8_DEQUANT,
+        "int8_all_quantized": r["int8_quantized_tensors"] == sum(
+            1 for p in cpu_net.parameters()
+            if p.dim() >= 2 and p.numel() >= 4096)}
+    emit({"phase": "od_vs_cpu", "batch": OD_CPU_BATCH, "readings": readings,
+          "limits": {"f32": TOL_OD_F32, "post": TOL_OD_POST,
+                     "bf16": TOL_OD_BF16, "int8": TOL_OD_INT8,
+                     "int8_dequant": TOL_OD_INT8_DEQUANT},
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"SSD card vs CPU failed its checks: {checks}")
+
+
+def _top_iou(dets, boxes, size):
+    """Mean IoU of each image's top detection (pixels) with its square; an
+    image without a detection counts 0."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection.bbox import \
+        iou_matrix
+    top = torch.from_numpy(np.ascontiguousarray(dets[:, :1, 2:6]))
+    gt = torch.from_numpy(np.stack([
+        np.asarray(b[:1], np.float32) * size for b in boxes[:len(dets)]]))
+    iou = iou_matrix(top, gt)[:, 0, 0].numpy()
+    return float(np.mean(np.where(dets[:, 0, 0] > 0, iou, 0.0)))
+
+
+def od_hot_reload_phase(card, root):
+    """A live server of an untrained ``ssd_tiny`` detector (64 px, one
+    class, f32 trunk) watches ``root``; ``ObjectDetector.fit`` trains a
+    copy from the same seed OD_RELOAD["epochs"] epochs on the toy squares
+    (``pack_targets``) on the card and its estimator's ``save_checkpoint``
+    writes into ``root``. The server swaps the weights in (``hot_reloads
+    == 1``, ``full_reloads == 0``) and its answers then equal the trained
+    model's ``predict_image_set`` (labels identical, boxes within
+    TOL_OD_RELOAD px). ``save_encrypted`` -> ``load_encrypted`` round-trips
+    and a tampered file raises."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 InMemoryBroker, InputQueue,
+                                                 OutputQueue)
+    size, n = 64, OD_RELOAD["images"]
+    rng = np.random.RandomState(13)
+    imgs = rng.rand(n, size, size, 3).astype(np.float32) * 0.1
+    boxes, labels = [], []
+    for i in range(n):
+        s = rng.randint(size // 4, size // 2)
+        x0, y0 = rng.randint(0, size - s, 2)
+        imgs[i, y0:y0 + s, x0:x0 + s] += 0.8
+        boxes.append(np.asarray([[x0, y0, x0 + s, y0 + s]]) / size)
+        labels.append(np.asarray([1]))
+    fresh = _od_detector(size, ("square",), "ssd_tiny", seed=5)
+    live = fresh.as_inference_model(max_detections=10,
+                                    serve_dtype="float32")
+    broker = InMemoryBroker()
+    serving = ClusterServing(live, queue=broker, batch_size=8,
+                             batch_timeout_ms=5).start(example=imgs[:1])
+    try:
+        iq, oq = InputQueue(broker), OutputQueue(broker)
+        before = np.stack(list(oq.dequeue(
+            [iq.enqueue(f"b-{i}", t=imgs[i]) for i in range(16)],
+            timeout_s=120).values()))
+        live.enable_hot_reload(root, poll_s=0.2)
+        det = _od_detector(size, ("square",), "ssd_tiny", seed=5)
+        det.compile(optimizer="adam")
+        t0 = time.perf_counter()
+        stats = det.fit({"x": imgs, "y": det.pack_targets(boxes, labels, 4)},
+                        batch_size=OD_RELOAD["batch"],
+                        epochs=OD_RELOAD["epochs"], verbose=False)
+        fit_s = time.perf_counter() - t0
+        det.estimator.save_checkpoint(root, blocking=True)
+        t0 = time.perf_counter()
+        while live.ckpt_stats().get("hot_reloads", 0) < 1:
+            if time.perf_counter() - t0 > 60:
+                fail("the live server did not hot-reload the checkpoint")
+            time.sleep(0.05)
+        swap_s = time.perf_counter() - t0
+        after = np.stack(list(oq.dequeue(
+            [iq.enqueue(f"a-{i}", t=imgs[i]) for i in range(16)],
+            timeout_s=120).values()))
+    finally:
+        live.disable_hot_reload()
+        serving.stop()
+    want = det.predict_image_set(imgs[:16], max_detections=10)
+    got = after * np.array([1, 1, size, size, size, size], np.float32)
+    path = os.path.join(root, "od.enc")
+    live.save_encrypted(None, path, "od-passphrase")
+    back = InferenceModel(device="cuda").load_encrypted(path,
+                                                        "od-passphrase")
+    same_back = bool(np.array_equal(back.predict(imgs[:8]),
+                                    live.predict(imgs[:8])))
+    blob = bytearray(open(path, "rb").read())
+    blob[len(blob) // 2] ^= 1
+    open(path, "wb").write(bytes(blob))
+    try:
+        InferenceModel(device="cuda").load_encrypted(path, "od-passphrase")
+        tamper_raises = False
+    except ValueError:
+        tamper_raises = True
+    counters = live.ckpt_stats()
+    checks = {
+        "hot_reloaded_once": counters.get("hot_reloads") == 1
+        and counters.get("full_reloads") == 0,
+        "loss_fell": stats[-1]["train_loss"] < stats[0]["train_loss"],
+        "answers_changed": not np.array_equal(before, after),
+        "answers_are_trained_models": bool(
+            np.array_equal(got[..., 0], want[..., 0])
+            and np.abs(got[..., 1:] - want[..., 1:]).max() <= TOL_OD_RELOAD),
+        "encrypted_round_trip": same_back,
+        "tampered_file_raises": tamper_raises}
+    emit({"phase": "od_hot_reload", "fit_s": fit_s, "swap_s": swap_s,
+          "losses": [s["train_loss"] for s in stats],
+          "ckpt_stats": counters,
+          "max_diff_px": float(np.abs(got[..., 1:] - want[..., 1:]).max()),
+          "top_scores": want[:, 0, 1].tolist()[:4],
+          "top_box_iou_with_square": _top_iou(want, boxes, size),
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"hot reload on the card failed its checks: {checks}")
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -3203,7 +3876,7 @@ def _spread(xs):
 
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches, autots_launches):
+                 fraud_launches, autots_launches, od_launches):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
     q/k/v strided views of the fused projection): the kernel's device time
     (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
@@ -3309,14 +3982,16 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
                 "serve": serve_launches,
                 "train": train_launches["flash_fwd"],
                 "fraud": fraud_launches["flash_fwd"],
-                "autots": autots_launches["flash_fwd"]}
+                "autots": autots_launches["flash_fwd"],
+                "od_serve": od_launches["flash_fwd"]}
             entry["library"] = "scaled_dot_product_attention forward"
             entry["library_timing"] = "CUDA-graph replays, in turns"
             entry["library_ms_eager"] = _spread(fwd["library"])
         else:
             entry["launches_by_path"] = {"train": launches,
                                          "fraud": fraud_launches[name],
-                                         "autots": autots_launches[name]}
+                                         "autots": autots_launches[name],
+                                         "od_serve": od_launches[name]}
             entry["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
             entry["library"] = ("scaled_dot_product_attention backward "
                                 "(autograd.grad of one forward output)")
@@ -3399,8 +4074,22 @@ def main():
     zouwu_vs_cpu_phase(card, df)
     zouwu_real_data_phase(card)
     auto_estimator_search_phase(card)
+    for fn in kernels:
+        fn.launches = 0
+    od_model, od_imgs = od_serve_phase(card)
+    od_launches = {fn.__name__: fn.launches for fn in kernels}
+    for fn, n in zip(kernels, kept):
+        fn.launches = n
+    od_profile_phase(od_model, od_imgs, card)
+    del od_model, od_imgs
+    od_vs_cpu_phase(card)
+    root = tempfile.mkdtemp(prefix="od-reload-")
+    try:
+        od_hot_reload_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches, autots_launches)
+                 fraud_launches, autots_launches, od_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
