@@ -1,6 +1,7 @@
 """AutoML (counterpart of ``analytics_zoo_tpu/automl``): the hp DSL, the
-device-leased search engine, ``ModelBuilder`` and ``AutoEstimator``. Not
-ported yet: the ASHA ``TrialRuntime`` and AutoXGBoost (ROADMAP A5)."""
+device-leased search engine with the ASHA ``TrialRuntime``
+(``scheduler``), ``ModelBuilder``, ``AutoEstimator`` and AutoXGBoost
+(``xgboost``)."""
 
 from . import hp
 from .auto_estimator import AutoEstimator

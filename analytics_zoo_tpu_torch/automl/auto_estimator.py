@@ -66,9 +66,14 @@ class AutoEstimator:
             keep_model_states=_UNSET, **_) -> "AutoEstimator":
         """(reference: auto_estimator.py:99)
 
+        ``scheduler="asha"`` runs trials through the fault-tolerant rung
+        scheduler (``automl.scheduler.TrialRuntime``): ``epochs`` becomes
+        the max per-trial budget, losing trials pause at rung boundaries
+        via checkpoint and only the top 1/eta train on; ``scheduler_params``
+        tunes {eta, grace_period, max_trial_retries, retry_backoff_s}.
+
         ``metric_threshold`` maps to the engine's ``stop_score`` (the
-        reference's tune stop condition). ``scheduler="asha"`` raises
-        ``NotImplementedError`` until the rung scheduler is ported."""
+        reference's tune stop condition)."""
         if self._fitted:
             raise RuntimeError(
                 "This AutoEstimator has already been fitted and cannot fit "
@@ -90,7 +95,9 @@ class AutoEstimator:
         return self
 
     def search_summary(self) -> Dict:
-        """Study telemetry: trials by state, epochs, device utilization."""
+        """Study telemetry (scheduler rungs/counters/device utilization
+        when scheduler='asha' ran; trials by state, epochs and device
+        utilization otherwise)."""
         return self.searcher.summary()
 
     def get_best_model(self):

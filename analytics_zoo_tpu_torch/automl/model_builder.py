@@ -101,11 +101,11 @@ class TrialModel:
           paused at epoch 3 and resumed with ``epochs=9`` trains 6 more,
           on the batch order of the uninterrupted run (``fit(...,
           initial_epoch=...)``).
-        * ``trial_context`` — a scheduler's ``TrialContext``: training runs
-          segment by segment between its rung boundaries, reporting the
-          score at each. The port has no scheduler that passes one yet
-          (ROADMAP A5); an object with the same ``set_state_fn``,
-          ``heartbeat``, ``next_boundary`` and ``report`` drives it.
+        * ``trial_context`` — a ``scheduler.TrialContext``: training runs
+          segment by segment between rung boundaries, reporting the
+          validation score at each boundary; the scheduler may raise
+          ``TrialPaused``/``TrialPreempted`` out of ``report``/``heartbeat``
+          after capturing a checkpoint via ``set_state_fn``.
         """
         est = self.estimator = self.estimator or self._build_estimator(metric)
         batch_size = int(self.config.get("batch_size", 32))

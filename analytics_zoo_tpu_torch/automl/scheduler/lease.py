@@ -14,11 +14,15 @@ Telemetry is the JAX package's: per-device busy seconds and lease counts
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
-__all__ = ["DeviceLease", "DeviceLeaseManager", "LeaseTimeout"]
+import torch
+
+__all__ = ["DeviceLease", "DeviceLeaseManager", "LeaseTimeout",
+           "current_device"]
 
 
 class LeaseTimeout(RuntimeError):
@@ -131,3 +135,11 @@ class DeviceLeaseManager:
                 "utilization": round(sum(busy) / (wall * len(self._devices)),
                                      4),
             }
+
+
+def current_device(device):
+    """``device`` as the current CUDA device for a trial's thread (nothing
+    for a CPU or stand-in device)."""
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -13,21 +13,20 @@ trial runs with it as the current CUDA device.
 ``TPUSearchEngine(device=...)`` picks the inventory: ``None`` means every
 visible card, and without a GPU it raises unless given ``device="cpu"``.
 
-Two execution modes, as in the JAX package:
+Three execution modes, as in the JAX package:
 
 * default — trials train their full epoch budget on a thread pool (one
   leased device each); ``stop_score`` cancels not-yet-started trials once
   a completed one reaches the threshold.
 * ``search_alg="bayes"`` — sequential GP-EI proposal loop.
-
-``scheduler="asha"`` (the JAX package's fault-tolerant rung scheduler,
-``automl.scheduler.TrialRuntime``) is not ported yet and raises
-``NotImplementedError`` (ROADMAP A5).
+* ``scheduler="asha"`` — the fault-tolerant rung scheduler
+  (``automl.scheduler.TrialRuntime``) over the same leased devices:
+  mid-training reports, pause/resume via checkpoint, retry-with-backoff,
+  SIGTERM study preemption + manifest resume.
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import threading
 import time
@@ -37,7 +36,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ...common.context import local_devices
 from .. import hp as hp_dsl
@@ -97,6 +95,7 @@ class TPUSearchEngine(SearchEngine):
         self._trials: List[Trial] = []
         self._compiled = False
         self._leases_utilization: Optional[Dict[str, Any]] = None
+        self._scheduler_summary: Optional[Dict[str, Any]] = None
         self._state_lock = threading.Lock()
 
     def compile(self, data, model_builder: Callable[[Dict], Any],
@@ -110,7 +109,9 @@ class TPUSearchEngine(SearchEngine):
                 keep_model_states: Any = UNSET):
         """model_builder(config, device) -> object with
         fit_eval(data, validation_data, epochs, metric) -> (score, metrics,
-        state).
+        state). The runtime also understands the extended fit_eval
+        protocol (``state=`` / ``trial_context=`` kwargs, detected by
+        signature) — see automl/scheduler/runtime.py.
 
         ``search_alg="bayes"`` switches run() to a sequential GP-EI loop
         over the continuous axes (reference: ray_tune_search_engine.py:176
@@ -121,10 +122,13 @@ class TPUSearchEngine(SearchEngine):
         ``reward_metric`` wired into tune's stop condition) — sequential
         runs stop launching trials once a completed trial reaches it
         (<= for metric_mode 'min', >= for 'max'); concurrent runs cancel
-        every not-yet-started trial (marked ``cancelled``).
+        every not-yet-started trial (marked ``cancelled``); the ASHA
+        scheduler checkpoints running trials and halts the study.
 
-        ``scheduler="asha"`` raises ``NotImplementedError``: the rung
-        scheduler is not ported yet (ROADMAP A5).
+        ``scheduler="asha"``: execute through the fault-tolerant rung
+        scheduler; ``epochs`` becomes the max per-trial budget (max_t) and
+        ``scheduler_params`` may set eta, grace_period, max_trial_retries,
+        retry_backoff_s.
 
         ``keep_model_states``: retain trained ``model_state`` only for the
         current top-k completed trials (default 1 — enough for
@@ -150,13 +154,13 @@ class TPUSearchEngine(SearchEngine):
             self.scheduler_params = scheduler_params
         if keep_model_states is not UNSET:
             self.keep_model_states = keep_model_states
-        if self.scheduler == "asha":
-            raise NotImplementedError(
-                "scheduler='asha' (the ASHA TrialRuntime) is not ported yet "
-                "(ROADMAP A5)")
-        if self.scheduler is not None:
+        if self.scheduler not in (None, "asha"):
             raise ValueError(f"unknown scheduler {self.scheduler!r} "
-                             "(supported: None)")
+                             "(supported: None, 'asha')")
+        if self.scheduler and self.search_alg == "bayes":
+            raise ValueError(
+                "scheduler='asha' and search_alg='bayes' are exclusive: the "
+                "GP-EI loop needs sequential full-fidelity observations")
         # grid axes expand; the remaining axes are sampled n_sampling times
         grid = hp_dsl.grid_configs(search_space)
         rng = np.random.RandomState(self.seed)
@@ -169,7 +173,7 @@ class TPUSearchEngine(SearchEngine):
         return self
 
     # --- model_state retention (memory bound) -------------------------------
-    def _retain_model_states(self):
+    def _retain_model_states(self, _trial=None):
         """Keep ``model_state`` only for the current top-k completed trials;
         drop the rest eagerly (errored/pruned trials' states, and previous
         leaders displaced by a better completion)."""
@@ -187,9 +191,11 @@ class TPUSearchEngine(SearchEngine):
                 if t.model_state is not None and id(t) not in keep:
                     t.model_state = None
 
-    def run(self) -> List[Trial]:
+    def run(self, resume="auto") -> List[Trial]:
         assert self._compiled, "call compile() first"
-        from ..scheduler.lease import DeviceLeaseManager
+        if self.scheduler == "asha":
+            return self._run_asha(resume)
+        from ..scheduler.lease import DeviceLeaseManager, current_device
 
         leases = DeviceLeaseManager(self.devices)
         workers = self.max_concurrent or len(leases)
@@ -202,7 +208,7 @@ class TPUSearchEngine(SearchEngine):
                 # exclusive device lease (pinning by devices[id % n]
                 # double-books devices whenever max_concurrent > len(devices))
                 with leases.acquire(owner=trial.trial_id) as lease, \
-                        _current_device(lease.device):
+                        current_device(lease.device):
                     if stop_flag.is_set():
                         # stop_score was reached while this trial waited for
                         # a device (future.cancel() can't reach futures
@@ -302,9 +308,43 @@ class TPUSearchEngine(SearchEngine):
             raise RuntimeError(f"all trials failed; first errors:\n{errs}")
         return self._trials
 
+    def _run_asha(self, resume="auto") -> List[Trial]:
+        from ..scheduler.runtime import TrialRuntime
+
+        params = dict(self.scheduler_params or {})
+        runtime = TrialRuntime(
+            trials=self._trials, model_builder=self.model_builder,
+            data=self.data, validation_data=self.validation_data,
+            metric=self.metric, metric_mode=self.metric_mode,
+            max_t=self.epochs, eta=params.get("eta", 3),
+            grace_period=params.get("grace_period", 1),
+            max_concurrent=self.max_concurrent,
+            max_trial_retries=params.get("max_trial_retries", 2),
+            retry_backoff_s=params.get("retry_backoff_s", 0.5),
+            logs_dir=self.logs_dir, name=self.name,
+            stop_score=self.stop_score, devices=self.devices,
+            on_trial_done=self._retain_model_states)
+        self._runtime = runtime
+        runtime.run(resume=resume)
+        self._scheduler_summary = runtime.summary()
+        done = [t for t in self._trials if t.state == "done"]
+        logger.info(
+            "asha study %s: %d/%d trials done, %d epochs trained "
+            "(exhaustive: %d)", runtime._status, len(done), len(self._trials),
+            self._scheduler_summary["epochs"]["trained"],
+            self._scheduler_summary["epochs"]["exhaustive"])
+        if not done and runtime._status == "completed":
+            errs = "\n".join(t.error or "?" for t in self._trials[:3])
+            raise RuntimeError(f"all trials failed; first errors:\n{errs}")
+        return self._trials
+
     def summary(self) -> Dict[str, Any]:
-        """Study telemetry: trials by state, epochs trained, and the device
-        leases' utilization of the last run."""
+        """Study telemetry: the scheduler's full summary (rungs, counters,
+        device utilization, epoch savings) when scheduler='asha' ran, else
+        trials by state, epochs trained, and the device leases'
+        utilization of the last run."""
+        if self._scheduler_summary is not None:
+            return self._scheduler_summary
         by_state: Dict[str, int] = {}
         for t in self._trials:
             by_state[t.state] = by_state.get(t.state, 0) + 1
@@ -327,10 +367,3 @@ class TPUSearchEngine(SearchEngine):
                       reverse=self.metric_mode == "max")
         return done[:k]
 
-
-def _current_device(device):
-    """``device`` as the current CUDA device for a trial's thread (nothing
-    for a CPU or stand-in device)."""
-    if isinstance(device, torch.device) and device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()

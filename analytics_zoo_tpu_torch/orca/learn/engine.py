@@ -281,14 +281,27 @@ class TrainEngine:
                                 self.module.named_parameters()]}
 
     def set_state(self, state: Dict[str, Any]):
-        """Adopt a state of :meth:`get_state`'s form; numpy leaves (as a
-        checkpoint reads them back) become tensors first."""
+        """Adopt a copy of a state of :meth:`get_state`'s form; numpy leaves
+        (as a checkpoint reads them back) become tensors first. The
+        optimizer's ``load_state_dict`` keeps tensors already on its device,
+        so the copy keeps training from writing into the caller's state (a
+        scheduler may resume from it again)."""
         state = _as_tensors(state)
         self.module.load_state_dict(state["params"], strict=True)
         if state.get("opt_state") is not None:
             self.build()
-            self.opt.load_state_dict(state["opt_state"])
+            self.opt.load_state_dict(_cloned(state["opt_state"]))
         self.step = int(state["step"])
+
+
+def _cloned(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _cloned(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_cloned(v) for v in obj]
+    return obj
 
 
 def _as_tensors(obj):

@@ -20,6 +20,11 @@ Planes, as in the JAX estimator:
   converted through ``interop``. Config keys ``ckpt_async``,
   ``ckpt_keep_last_k``, ``ckpt_keep_best_k``, ``ckpt_metric_mode``,
   ``ckpt_passphrase``, ``ckpt_max_inflight`` and ``ckpt_fsync`` tune it.
+* **preemption** (``orca/learn/preemption.py``): a fit that can recover
+  (``model_dir`` and a trigger or a retry count) latches SIGTERM, ends
+  the epoch at the current step, checkpoints at once (flushed, with one
+  blocking retry) and returns, the last epoch's stats flagged
+  ``preempted`` and ``partial_epoch``.
 * **host to device** (``native/``): batches come through the infeed pump
   (config ``infeed_depth``, ``infeed_workers``); ``data_pipeline_stats()``
   gives the stage counters, with the checkpoint plane's under ``"ckpt"``.
@@ -40,12 +45,12 @@ numeric validation result at the epoch's last iteration under
 ``get_validation_summary(tag)`` read them back as ``[(step, value)]``.
 
 ``Estimator.from_keras`` builds a ``TPUEstimator`` from a module or a
-creator, as in the JAX package. Not ported yet: preemption handling and
-``profile=<trace dir>``.
+creator, as in the JAX package. Not ported yet: ``profile=<trace dir>``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -62,6 +67,7 @@ from .engine import TrainEngine
 from .losses import convert_loss
 from .metrics import convert_metrics_list
 from .optimizers.optimizers_impl import convert_optimizer
+from .preemption import PreemptionWatcher
 from .trigger import TrainerState, Trigger
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -327,7 +333,9 @@ class TPUEstimator:
         checkpoints; with a trigger or ``max_failure_retries`` (default 5)
         a failing epoch is retried from the latest checkpoint, as in the
         JAX estimator. ``fit`` returns only once every queued checkpoint is
-        durable.
+        durable. Such a recoverable fit also handles SIGTERM as a
+        preemption notice: it checkpoints at the current step and returns
+        early, the last stats carrying ``preempted`` and ``partial_epoch``.
 
         ``initial_epoch`` offsets the shuffle's epoch counter, as in the JAX
         estimator: a run resumed from a checkpoint with it draws the batch
@@ -358,11 +366,15 @@ class TPUEstimator:
                 self.model_dir)[0] is None:
             # a restore point exists before the first step
             self.save_checkpoint(self.model_dir)
+        watcher = PreemptionWatcher() if can_recover else None
         try:
-            return self._fit_loop(it, epochs, steps_per_epoch, batch_size,
-                                  feature_cols, label_cols, validation_data,
-                                  trigger, profile, verbose, can_recover,
-                                  retries_left)
+            with (watcher if watcher is not None
+                  else contextlib.nullcontext()):
+                return self._fit_loop(it, epochs, steps_per_epoch,
+                                      batch_size, feature_cols, label_cols,
+                                      validation_data, trigger, profile,
+                                      verbose, can_recover, retries_left,
+                                      watcher)
         finally:
             # a failed async write gets one blocking retry
             if not self.flush_checkpoints() and self.model_dir is not None:
@@ -374,13 +386,13 @@ class TPUEstimator:
 
     def _fit_loop(self, it, epochs, steps_per_epoch, batch_size,
                   feature_cols, label_cols, validation_data, trigger,
-                  profile, verbose, can_recover, retries_left):
+                  profile, verbose, can_recover, retries_left, watcher):
         epoch_stats = []
         ep = 0
         while ep < epochs:
             try:
                 stats = self._fit_epoch(it, ep, steps_per_epoch, trigger,
-                                        profile)
+                                        profile, watcher)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:
@@ -393,6 +405,27 @@ class TPUEstimator:
                     "checkpoint %s, retrying (%d retries left)",
                     ep + 1, type(e).__name__, e, path, retries_left)
                 continue                 # re-run the failed epoch
+            if watcher is not None and watcher.triggered:
+                # preemption notice: checkpoint at once (the grace window is
+                # short, so no validation first) and make it durable; the
+                # epoch is partial and flagged so
+                self.save_checkpoint(self.model_dir)
+                if not self.flush_checkpoints():
+                    # the async write failed: one blocking retry
+                    try:
+                        self.save_checkpoint(self.model_dir, blocking=True)
+                    except Exception as save_err:   # noqa: BLE001
+                        logger.error(
+                            "preemption checkpoint could not be written "
+                            "(%s); resume will use the previous restore "
+                            "point", save_err)
+                stats["preempted"] = True
+                stats["partial_epoch"] = True
+                epoch_stats.append(stats)
+                logger.warning(
+                    "stopping after a preemption notice "
+                    "(checkpointed at step %d)", self.engine.step)
+                break
             if validation_data is not None:
                 val = self.evaluate(validation_data, batch_size=batch_size,
                                     feature_cols=feature_cols,
@@ -415,7 +448,7 @@ class TPUEstimator:
         return epoch_stats
 
     def _fit_epoch(self, it, ep: int, steps_per_epoch: Optional[int],
-                   trigger, profile: bool) -> Dict[str, Any]:
+                   trigger, profile: bool, watcher=None) -> Dict[str, Any]:
         t0 = time.time()
         losses = []                    # device scalars, read at epoch end
         nsteps = steps_per_epoch or it.steps_per_epoch
@@ -440,6 +473,8 @@ class TPUEstimator:
                     self._trainer_state.epoch_finished = False
                     if trigger(self._trainer_state):
                         self.save_checkpoint(self.model_dir)
+                if watcher is not None and watcher.triggered:
+                    break        # preemption: end the epoch at this step
         finally:
             close = getattr(batches, "close", None)
             if close is not None:

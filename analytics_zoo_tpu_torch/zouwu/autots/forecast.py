@@ -4,8 +4,11 @@ pyzoo/zoo/zouwu/autots/forecast.py AutoTSTrainer.fit -> TSPipeline).
 
 Trials run on the device-leased ``TPUSearchEngine``: each trial builds a
 ``TimeSequenceFeatureTransformer`` and a forecaster on its leased device,
-trains its recipe's epoch budget and is scored by validation MSE; the
-best trial's forecaster comes back as a ``TSPipeline``. ``AutoTSTrainer``
+trains its recipe's epoch budget (under ``scheduler="asha"``, rung by rung
+up to it) and is scored by validation MSE; the best trial's forecaster
+comes back as a ``TSPipeline``. A paused trial's state holds its live
+forecaster, which the checkpoint plane cannot pickle, so the rung
+scheduler keeps it in memory, as the JAX package does. ``AutoTSTrainer``
 runs on ``device`` (``None``: every visible card; without a GPU it raises
 unless given ``device="cpu"``). pandas is imported inside the functions
 that take DataFrames.
@@ -50,8 +53,10 @@ class AutoTSTrainer:
         self.horizon = horizon
         self.extra_features_col = extra_features_col
         self.name = name
-        # scheduler="asha" (the JAX package's rung scheduler) raises when the
-        # search compiles: it is not ported yet
+        # scheduler="asha" routes trials through the fault-tolerant rung
+        # scheduler (pause/resume at rung boundaries, retry-with-backoff,
+        # SIGTERM study checkpointing when logs_dir is set); the reference
+        # forwarded the same kwargs to Ray Tune's scheduler slot
         self.scheduler = scheduler
         self.scheduler_params = scheduler_params
         self.logs_dir = logs_dir
@@ -124,7 +129,8 @@ class AutoTSTrainer:
         # negative loss): reward_metric=-0.05 stops once mse <= 0.05
         reward = getattr(recipe, "reward_metric", None)
         # the per-trial epoch budget: recipes carry it as `epochs` (LSTM) or
-        # `training_iteration` (the tune-style recipes)
+        # `training_iteration` (the tune-style recipes); under
+        # scheduler="asha" this is max_t, the top-rung budget
         max_t = int(getattr(recipe, "epochs", None)
                     or getattr(recipe, "training_iteration", 5) or 5)
         engine.compile(train_df,

@@ -106,7 +106,22 @@ device leases), it
 * holds MTNetLite to the NYC-taxi gate of tests/test_zouwu_real_data.py
   (``zouwu_real_data``);
 * searches lr and batch size for a torch MLP through
-  ``AutoEstimator.from_torch`` (``auto_estimator_search``).
+  ``AutoEstimator.from_torch`` (``auto_estimator_search``);
+* runs each recipe at 10 trials and 9 epochs under the ASHA
+  ``TrialRuntime`` (``scheduler="asha"``, rungs [1, 3, 9]) and
+  exhaustively: fewer than half the epochs, the winner within 1.5x of the
+  exhaustive best, every trial in the study's event log and manifest
+  (``asha_autots``);
+* pauses a ``TrialModel`` at epoch 2, checkpoints it to disk through the
+  checkpoint plane and resumes it bit for bit (with an off-by-one
+  control), and sends an ASHA study SIGTERM from a report hook, resumes
+  it from its manifest through a fresh ``AutoEstimator`` and holds its
+  rung ledger and winner to an uninterrupted study's (``asha_resume``);
+* stops the fraud MLP's ``TPUEstimator.fit`` by SIGTERM at iteration 10
+  and restores its checkpoint bit for bit (``estimator_preemption``);
+* searches ``AutoXGBRegressor`` and ``AutoXGBClassifier`` on the card's
+  lease against a CPU run (``auto_xgb``; no flash kernel launches on any
+  of these four paths).
 
 Then, with SSD object detection served through Cluster Serving, BASELINE
 #5 (``examples/serving/object_detection_serving.py``, bench.py's
@@ -140,6 +155,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -371,6 +387,29 @@ TOL_ZOUWU = {"loss": TOL_STEP_LOSS, "grad": TOL_STEP_GRAD}
 # dropout draws) every seed passed: MTNetLite 0.0251-0.0294 against the
 # LSTM's 0.0219-0.0273 (H100 80GB HBM3, 700 W).
 REAL_DATA_SEEDS = (0, 1, 2, 3, 4)
+# AutoTS under the ASHA TrialRuntime (scheduler="asha", eta 3, grace 1):
+# each recipe of autots_trials at 5 random draws (x the batch-size grid of
+# 2: 10 trials a recipe) and a 9-epoch budget, so the rungs are [1, 3, 9];
+# the same recipe and seed under the default scheduler is the exhaustive
+# search (90 epochs a recipe). The ASHA winner's MSE must be within
+# ASHA_WINNER_FACTOR of the exhaustive best: the JAX suite's tolerance
+# (tests/test_trial_scheduler.py, test_auto_estimator_asha_end_to_end).
+ASHA_AUTOTS = dict(n_rand=5, epochs=9, eta=3, grace_period=1)
+ASHA_WINNER_FACTOR = 1.5
+# Pause/resume and SIGTERM resume through AutoEstimator's TrialModel on the
+# card: a 16 -> 64 -> 1 MLP with a 0.1 dropout drawn from the engine's
+# step-seeded generator, Adam, 4,096 rows of a noisy linear target, batch
+# 128; straight to 4 epochs against 2, a checkpoint written and read back
+# through the checkpoint plane, and 2 more. The SIGTERM study: lr
+# log-uniform x batch size (64 | 128), 6 draws (12 trials), 9 epochs,
+# eta 3, on one lease; every comparison is bit for bit.
+ASHA_RESUME = dict(rows=4096, features=16, hidden=64, batch=128, epochs=4,
+                   pause_at=2, n_sampling=6, max_t=9, eta=3)
+# AutoXGBoost through the engine on the card's lease: the JAX suite's
+# targets (tests/test_batch3_components.py) at 10,000 rows, 8 features, a
+# 20 % validation split; trees train on the host (numpy), so a device="cpu"
+# run must give the same best config and predictions bit for bit.
+AUTO_XGB = dict(rows=10000, features=8, n_estimators=50)
 # SSD object detection served through ObjectDetector.as_inference_model ->
 # ClusterServing, BASELINE #5 (examples/serving/object_detection_serving.py,
 # bench.py's bench_serving_od): SSD300 as ssd.py's ssd_300 defines it (300
@@ -3178,6 +3217,481 @@ def auto_estimator_search_phase(card):
         fail(f"AutoEstimator search on the card failed its checks: {checks}")
 
 
+# --- the ASHA TrialRuntime, the estimator's preemption plane, AutoXGBoost ----
+
+def _study_events(logs_dir):
+    with open(os.path.join(logs_dir, "study_events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def asha_autots_phase(card, df, dev="cuda"):
+    """Each AutoTS recipe at ASHA_AUTOTS through ``AutoTSTrainer.fit(...,
+    scheduler="asha")`` on the card, then the same recipe and seed under
+    the default scheduler (the exhaustive search). Every ASHA trial ends
+    ``done`` on the leased device with the config the engine's seed gives;
+    fewer than half the exhaustive epochs are trained and the rung
+    populations shrink; the winner trained the whole budget and scores
+    within ASHA_WINNER_FACTOR of the exhaustive best; the study's event
+    log has a start and an end for every trial (``trial_done``, or
+    ``trial_pruned`` for a trial the study ended paused) and its manifest
+    ends ``completed``."""
+    from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
+    from analytics_zoo_tpu_torch.zouwu.config.recipe import (
+        LSTMGridRandomRecipe, TCNGridRandomRecipe)
+    cfg = ASHA_AUTOTS
+    leased = "cuda:0" if dev == "cuda" else "cpu"
+    recipes = [LSTMGridRandomRecipe(num_rand_samples=cfg["n_rand"],
+                                    epochs=cfg["epochs"]),
+               TCNGridRandomRecipe(num_rand_samples=cfg["n_rand"],
+                                   training_iteration=cfg["epochs"])]
+    params = {"eta": cfg["eta"], "grace_period": cfg["grace_period"]}
+    root = tempfile.mkdtemp(prefix="asha-autots-")
+    results, checks = {}, {}
+    try:
+        for recipe in recipes:
+            model = recipe.model_type()
+            logs = os.path.join(root, model)
+            runs = {}
+            for scheduler in ("asha", None):
+                trainer = AutoTSTrainer(
+                    dt_col="datetime", target_col="value",
+                    horizon=AUTOTS["horizon"], scheduler=scheduler,
+                    scheduler_params=params,
+                    logs_dir=logs if scheduler else None, device=dev)
+                t0 = time.perf_counter()
+                pipe = trainer.fit(df, validation_df=None, recipe=recipe)
+                wall = time.perf_counter() - t0
+                runs[scheduler] = (trainer.engine, pipe, wall)
+            eng, pipe, wall = runs["asha"]
+            full, _, full_wall = runs[None]
+            trials, s = eng._trials, eng.summary()
+            n = len(trials)
+            best, full_best = eng.get_best_trial(), full.get_best_trial()
+            reported = [r["reported"] for r in s["rungs"]]
+            events = _study_events(logs)
+            started = {e["trial"] for e in events
+                       if e["event"] == "trial_start"}
+            ended = {e["trial"]: e["event"] for e in events
+                     if e["event"] in ("trial_done", "trial_pruned")}
+            with open(os.path.join(logs, "study_state.json")) as f:
+                manifest = json.load(f)
+            ids = {t.trial_id for t in trials}
+            res = pipe.evaluate(df, metrics=["mse"])
+            checks.update({
+                f"{model}_done_on_{leased}_with_seed_configs": (
+                    n == 2 * cfg["n_rand"]
+                    and [t.config for t in trials] == _seed_configs(recipe)
+                    and all(t.state == "done" and t.device == leased
+                            for t in trials)),
+                f"{model}_under_half_the_exhaustive_epochs": (
+                    s["epochs"]["trained"] < 0.5 * n * cfg["epochs"]
+                    and s["epochs"]["exhaustive"] == n * cfg["epochs"]),
+                f"{model}_rungs_shrink": (
+                    s["rungs"][-1]["budget_epochs"] == cfg["epochs"]
+                    and reported[0] == n
+                    and reported[0] > reported[1] >= reported[2] >= 1),
+                f"{model}_winner_trained_max_t":
+                    best.epochs_trained == cfg["epochs"],
+                f"{model}_winner_within_factor_of_exhaustive":
+                    best.metric_value <= ASHA_WINNER_FACTOR
+                    * full_best.metric_value,
+                f"{model}_events_start_and_end_every_trial":
+                    started == ids and set(ended) == ids,
+                f"{model}_manifest_completed":
+                    manifest["status"] == s["status"] == "completed",
+                f"{model}_pipeline_evaluates": math.isfinite(res["mse"])})
+            results[model] = {
+                "trials": n, "asha_wall_s": wall,
+                "exhaustive_wall_s": full_wall,
+                "asha_trials_per_hour": n / wall * 3600.0,
+                "exhaustive_trials_per_hour": n / full_wall * 3600.0,
+                "epochs_trained": s["epochs"]["trained"],
+                "epochs_exhaustive": s["epochs"]["exhaustive"],
+                "exhaustive_epochs_trained": full.summary()["epochs"][
+                    "trained"],
+                "rungs": s["rungs"], "counters": s["counters"],
+                "winner": {"config": best.config, "mse": best.metric_value,
+                           "epochs": best.epochs_trained},
+                "exhaustive_best": {"config": full_best.config,
+                                    "mse": full_best.metric_value},
+                "winner_over_exhaustive_best": best.metric_value
+                / full_best.metric_value,
+                "utilization": s["chips"]["utilization"],
+                "lease_busy_s": s["chips"]["busy_s"],
+                "trial_end_events": {e: list(ended.values()).count(e)
+                                     for e in ("trial_done",
+                                               "trial_pruned")},
+                # AutoTS's state holds a live forecaster, which the
+                # checkpoint plane's skeleton pickle refuses: RAM fallback
+                "trial_ckpt_saves": s["ckpt"].get("saves", 0),
+                "pipeline_mse": res["mse"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "asha_autots", "points": AUTOTS["points"],
+          "scheduler_params": params, "max_t": cfg["epochs"],
+          "limit": {"epochs": "< 0.5 x exhaustive", "winner_mse":
+                    f"<= {ASHA_WINNER_FACTOR} x exhaustive best"},
+          "control": "the exhaustive search (scheduler=None), same seed",
+          "results": results, "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"ASHA AutoTS on the card failed its checks: {checks}")
+
+
+def _resume_data(seed):
+    cfg = ASHA_RESUME
+    rng = np.random.RandomState(seed)
+    w = np.random.RandomState(31).randn(cfg["features"]).astype(np.float32)
+    x = rng.randn(cfg["rows"], cfg["features"]).astype(np.float32)
+    y = (x @ w + 0.1 * rng.randn(cfg["rows"])).astype(np.float32)
+    return {"x": x, "y": y[:, None]}
+
+
+def _resume_creator(config):
+    """The MLP of the resume checks: its dropout draws from the training
+    engine's generator, reseeded from the step, so a resumed run draws
+    the masks an uninterrupted one does."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.self_attention \
+        import Dropout
+    cfg = ASHA_RESUME
+    torch.manual_seed(0)
+    return torch.nn.Sequential(
+        torch.nn.Linear(cfg["features"], cfg["hidden"]), torch.nn.ReLU(),
+        Dropout(0.1), torch.nn.Linear(cfg["hidden"], 1))
+
+
+def _same_params(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+class _SigtermAtContinue:
+    """Wraps trials' ``TrialContext``: counts their reports, and at the
+    first one from ``at`` on that lets its trial train on ("continue"),
+    sends this process SIGTERM and waits until the study halts, so that
+    trial is preempted at its next heartbeat (a deterministic point; the
+    runtime's watcher latches the signal on the main thread)."""
+
+    def __init__(self, at=1):
+        self.at, self.count, self.fired_at = at, 0, None
+
+    def wrap(self, ctx):
+        hook = self
+
+        class _Ctx:
+            def __getattr__(self, name):
+                return getattr(ctx, name)
+
+            def report(self, step, metric):
+                hook.count += 1
+                out = ctx.report(step, metric)
+                if hook.fired_at is None and hook.count >= hook.at \
+                        and out == "continue":
+                    hook.fired_at = (ctx.trial_id, int(step), hook.count)
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    if not ctx._runtime._halt.wait(30):
+                        fail("the study did not halt on SIGTERM")
+                return out
+        return _Ctx()
+
+
+def _hooked_builder(builder, hook):
+    """``builder`` whose trial models report through ``hook``."""
+    from analytics_zoo_tpu_torch.automl import ModelBuilder
+
+    class Hooked(ModelBuilder):
+        def __call__(self, config, device):
+            tm = super().__call__(config, device)
+            fit_eval = tm.fit_eval
+
+            def hooked(data, validation_data=None, epochs=1, metric="mse",
+                       state=None, trial_context=None):
+                return fit_eval(data, validation_data, epochs, metric,
+                                state=state,
+                                trial_context=hook.wrap(trial_context))
+            tm.fit_eval = hooked
+            return tm
+    return Hooked(builder.model_creator, builder.optimizer_creator,
+                  builder.loss_creator)
+
+
+def asha_resume_phase(card, dev="cuda"):
+    """The JAX suite's "resumed trials are bit-identical to uninterrupted
+    ones" on the card. Pause/resume: two straight 4-epoch runs of a
+    ``TrialModel`` (read: do they agree?), then 2 epochs, a checkpoint
+    through the checkpoint plane to disk and back, and 2 more in a fresh
+    model: every parameter and the step equal the straight run's; the
+    control resumes with the shuffle's epoch off by one and must differ.
+    SIGTERM: an ASHA study through ``AutoEstimator.fit`` with a
+    ``logs_dir`` is sent SIGTERM from a report hook; ``fit`` returns with
+    the study ``preempted`` and the running trial checkpointed; a fresh
+    ``AutoEstimator`` on the same ``logs_dir`` adopts the manifest, and its
+    rung ledger and winner (config, epochs, score) equal an uninterrupted
+    study's on one lease."""
+    from analytics_zoo_tpu_torch.automl import AutoEstimator, ModelBuilder, hp
+    from analytics_zoo_tpu_torch.ckpt import (CheckpointPlane,
+                                              load_checkpoint_dir)
+    cfg = ASHA_RESUME
+    data, val = _resume_data(0), _resume_data(1)
+    device = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    leased = str(device)
+    builder = ModelBuilder(_resume_creator,
+                           loss_creator=lambda c: torch.nn.MSELoss())
+    trial_cfg = {"lr": 1e-3, "batch_size": cfg["batch"]}
+    t0 = time.perf_counter()
+    straight = [builder(trial_cfg, device).fit_eval(
+        data, val, epochs=cfg["epochs"], metric="mse") for _ in range(2)]
+    first = builder(trial_cfg, device)
+    _, _, paused = first.fit_eval(data, val, epochs=cfg["pause_at"],
+                                  metric="mse")
+    root = tempfile.mkdtemp(prefix="asha-resume-")
+    try:
+        plane = CheckpointPlane(os.path.join(root, "ckpt"), keep_last_k=2)
+        path = plane.save(paused, cfg["pause_at"], name="trial_0",
+                          blocking=True)
+        plane.close()
+        from_disk = load_checkpoint_dir(path)
+        resumed = builder(trial_cfg, device)
+        score_r, _, state_r = resumed.fit_eval(
+            data, val, epochs=cfg["epochs"], metric="mse", state=from_disk)
+        control = builder(trial_cfg, device)
+        control.fit_eval(data, val, epochs=0, metric="mse", state=from_disk)
+        control.estimator.fit(data, epochs=cfg["epochs"] - cfg["pause_at"],
+                              batch_size=cfg["batch"], verbose=False,
+                              initial_epoch=cfg["pause_at"] + 1)
+        state_c = control.estimator.engine.get_state()
+        (score_a, _, state_a), (score_b, _, state_b) = straight
+        pause_s = time.perf_counter() - t0
+
+        def study(logs, hook=None):
+            auto = AutoEstimator.from_torch(
+                model_creator=_resume_creator, loss=torch.nn.MSELoss(),
+                optimizer="adam", logs_dir=logs, device=dev)
+            if hook is not None:
+                auto.model_builder = _hooked_builder(auto.model_builder, hook)
+            auto.fit(data, epochs=cfg["max_t"], validation_data=val,
+                     metric="mse", n_sampling=cfg["n_sampling"],
+                     search_space={"lr": hp.loguniform(1e-4, 1e-1),
+                                   "batch_size": hp.grid_search([64, 128])},
+                     scheduler="asha",
+                     scheduler_params={"eta": cfg["eta"],
+                                       "grace_period": 1})
+            return auto
+
+        t1 = time.perf_counter()
+        ref = study(os.path.join(root, "straight"))
+        ref_s = time.perf_counter() - t1
+        logs = os.path.join(root, "preempted")
+        hook = _SigtermAtContinue()
+        t1 = time.perf_counter()
+        cut = study(logs, hook)
+        cut_s = time.perf_counter() - t1
+        cut_summary = cut.searcher._runtime.summary()
+        with open(os.path.join(logs, "study_state.json")) as f:
+            manifest = json.load(f)
+        inflight = [t for t in manifest["trials"]
+                    if t["status"] == "paused" and t["runnable"]]
+        t1 = time.perf_counter()
+        again = study(logs)
+        again_s = time.perf_counter() - t1
+        events = _study_events(logs)
+        s, want = again.search_summary(), ref.search_summary()
+        a, b = again.best_trial, ref.best_trial
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_trials = 2 * cfg["n_sampling"]
+    readings = {
+        "straight_runs_agree": _same_params(state_a["params"],
+                                            state_b["params"])
+        and score_a == score_b,
+        "straight_score": score_a, "resumed_score": score_r,
+        "step": state_a["step"], "resumed_step": state_r["step"],
+        "control_step": state_c["step"],
+        "control_params_equal": _same_params(state_a["params"],
+                                             state_c["params"]),
+        "sigterm_at": hook.fired_at,
+        "preempted_status": cut_summary["status"],
+        "preempted_trials": cut_summary["trials"],
+        "inflight_checkpointed": [(t["id"], t["epochs_done"])
+                                  for t in inflight],
+        "resumed_status": s["status"], "resumed_trials": s["trials"],
+        "rungs": s["rungs"], "uninterrupted_rungs": want["rungs"],
+        "winner": {"config": a.config, "epochs": a.epochs_trained,
+                   "mse": a.metric_value},
+        "uninterrupted_winner": {"config": b.config,
+                                 "epochs": b.epochs_trained,
+                                 "mse": b.metric_value}}
+    checks = {
+        "straight_runs_agree": readings["straight_runs_agree"],
+        "resumed_equals_straight": (
+            _same_params(state_a["params"], state_r["params"])
+            and state_r["step"] == state_a["step"] and score_r == score_a),
+        "control_differs": (state_c["step"] == state_a["step"]
+                            and not readings["control_params_equal"]),
+        "sigterm_fired_mid_study": hook.fired_at is not None,
+        "interrupted_run_preempted": (
+            cut_summary["status"] == manifest["status"] == "preempted"),
+        "running_trial_checkpointed": (
+            len(inflight) == 1 and inflight[0]["epochs_done"] > 0
+            and inflight[0]["ckpt"] is not None),
+        "manifest_adopted": any(e["event"] == "study_resume"
+                                for e in events),
+        "every_trial_accounted": (
+            s["status"] == "completed"
+            and s["trials"] == {"total": n_trials, "done": n_trials}
+            and len(manifest["trials"]) == n_trials),
+        "rung_ledger_equal": s["rungs"] == want["rungs"],
+        "winner_equal": (a.config, a.epochs_trained, a.metric_value)
+        == (b.config, b.epochs_trained, b.metric_value),
+        # a trial the resumed run did not train keeps device None
+        "on_card": all(t.device == leased for t in ref.get_trials())
+        and all(t.device in (None, leased) for t in again.get_trials())}
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "asha_resume", "config": cfg, "readings": readings,
+          "limit": "bit for bit", "control": "shuffle epoch off by one",
+          "pause_resume_s": pause_s, "uninterrupted_study_s": ref_s,
+          "preempted_study_s": cut_s, "resumed_study_s": again_s,
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"ASHA resume on the card failed its checks: {checks}")
+
+
+def estimator_preemption_phase(card, dev="cuda"):
+    """The fraud MLP at BASELINE #3's widths through ``TPUEstimator.fit``
+    with a ``model_dir``, SIGTERM from a trigger at iteration >= 10
+    (tests/test_estimator.py's preemption test): ``fit`` returns early, the
+    last epoch's stats carry ``preempted`` and ``partial_epoch``,
+    ``ckpt-{step}`` exists, and a fresh estimator (other initial weights:
+    the control) restores the stopped one's weights bit for bit."""
+    from analytics_zoo_tpu_torch.orca.learn.estimator import TPUEstimator
+    from analytics_zoo_tpu_torch.orca.learn.trigger import SeveralIteration
+    cfg = FRAUD
+    x, y = synthetic_fraud(cfg["rows"], cfg["features"], cfg["fraud_rate"],
+                           cfg["seed"])
+    data = {"x": x, "y": y[:, None]}
+
+    class _SigtermAt(SeveralIteration):
+        fired = None
+
+        def __call__(self, state):
+            if state.iteration >= 10 and self.fired is None:
+                self.fired = state.iteration
+                os.kill(os.getpid(), signal.SIGTERM)
+            return False
+
+    root = tempfile.mkdtemp(prefix="preempt-")
+    try:
+        est = TPUEstimator(_fraud_net(seed=0).to_module(),
+                           loss="binary_crossentropy", optimizer="adam",
+                           model_dir=root, device=dev)
+        trigger = _SigtermAt(10_000)
+        before = signal.getsignal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        stats = est.fit(data, epochs=cfg["epochs"], batch_size=cfg["batch"],
+                        checkpoint_trigger=trigger, verbose=False)
+        fit_s = time.perf_counter() - t0
+        step = est.engine.step
+        ckpts = sorted(d for d in os.listdir(root) if d.startswith("ckpt-"))
+        fresh = TPUEstimator(_fraud_net(seed=1).to_module(),
+                             loss="binary_crossentropy", optimizer="adam",
+                             device=dev)
+        fresh.fit(data, epochs=0, batch_size=cfg["batch"], verbose=False)
+        want = est.engine.get_state()
+        control_equal = _same_params(fresh.engine.get_state()["params"],
+                                     want["params"])
+        fresh.load_checkpoint(root)
+        got = fresh.engine.get_state()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = {
+        "returned_early": 0 < len(stats) < cfg["epochs"],
+        "last_stats_preempted": (stats[-1].get("preempted") is True
+                                 and stats[-1].get("partial_epoch") is True),
+        "handler_restored": signal.getsignal(signal.SIGTERM) is before,
+        "ckpt_at_stop_step": f"ckpt-{step}" in ckpts,
+        "restored_bitwise": (_same_params(got["params"], want["params"])
+                             and got["step"] == step),
+        "control_differs": not control_equal,
+        "on_card": _on_card(est.module) if dev == "cuda" else True}
+    emit({"phase": "estimator_preemption", "widths": cfg["widths"],
+          "batch": cfg["batch"], "sigterm_at_iteration": trigger.fired,
+          "stopped_at_step": step, "epochs_returned": len(stats),
+          "last_stats": stats[-1], "checkpoints": ckpts, "fit_s": fit_s,
+          "limit": "bit for bit", "control": "a fresh estimator's own "
+          "initial weights", "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"estimator preemption on the card failed its checks: {checks}")
+
+
+def auto_xgb_phase(card, dev="cuda"):
+    """``AutoXGBRegressor`` (XgbRegressorGridRandomRecipe) and
+    ``AutoXGBClassifier`` through the engine on the card's lease: every
+    trial ``done`` on the leased device; the best config and predictions
+    equal a ``device="cpu"`` run's bit for bit (the trees are numpy on
+    both; the bundled histogram GBT, as xgboost is not installed)."""
+    from analytics_zoo_tpu_torch.automl import hp
+    from analytics_zoo_tpu_torch.automl.xgboost import (AutoXGBClassifier,
+                                                        AutoXGBRegressor)
+    from analytics_zoo_tpu_torch.zouwu.config.recipe import \
+        XgbRegressorGridRandomRecipe
+    cfg = AUTO_XGB
+    n, cut = cfg["rows"], cfg["rows"] * 4 // 5
+    rng = np.random.RandomState(0)
+    x = rng.rand(n, cfg["features"])
+    y = (10 * np.sin(np.pi * x[:, 0] * x[:, 1]) + 5 * x[:, 3]
+         + 0.2 * rng.randn(n))
+    xc = rng.randn(n, cfg["features"])
+    yc = (xc[:, 0] + xc[:, 1] > 0).astype(int)
+    searches = {
+        "regressor": (AutoXGBRegressor, (x, y), "rmse", 2,
+                      XgbRegressorGridRandomRecipe(
+                          num_rand_samples=2,
+                          n_estimators=(cfg["n_estimators"],),
+                          max_depth=(4, 6)).search_space([])),
+        "classifier": (AutoXGBClassifier, (xc, yc), "error", 3,
+                       {"n_estimators": hp.grid_search([cfg["n_estimators"]]),
+                        "max_depth": hp.grid_search([4]),
+                        "lr": hp.loguniform(1e-2, 3e-1)})}
+    leased = "cuda:0" if dev == "cuda" else "cpu"
+    results, checks = {}, {}
+    for kind, (cls, (xs, ys), metric, n_sampling, space) in searches.items():
+        train, val = (xs[:cut], ys[:cut]), (xs[cut:], ys[cut:])
+        runs = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            auto = cls(device=where).fit(train, validation_data=val,
+                                         metric=metric, search_space=space,
+                                         n_sampling=n_sampling)
+            runs[where] = (auto, time.perf_counter() - t0)
+        (card_auto, card_s), (cpu_auto, cpu_s) = runs[dev], runs["cpu"]
+        trials = card_auto.engine._trials
+        pred = card_auto.predict(val[0])
+        quality = (float(np.sqrt(np.mean((pred - val[1]) ** 2)))
+                   / float(np.std(val[1])) if kind == "regressor"
+                   else float(np.mean(pred == val[1])))
+        checks[f"{kind}_trials_done_on_{leased}"] = all(
+            t.state == "done" and t.device == leased for t in trials)
+        checks[f"{kind}_best_config_equals_cpu"] = \
+            card_auto.get_best_config() == cpu_auto.get_best_config()
+        checks[f"{kind}_predictions_equal_cpu"] = bool(np.array_equal(
+            pred, cpu_auto.predict(val[0])))
+        checks[f"{kind}_beats_baseline"] = (quality < 0.7
+                                            if kind == "regressor"
+                                            else quality > 0.9)
+        results[kind] = {"trials": len(trials),
+                         "best_config": card_auto.get_best_config(),
+                         "scores": [t.metric_value for t in trials],
+                         "rmse_over_std" if kind == "regressor"
+                         else "accuracy": quality,
+                         "fit_s_leased": card_s, "fit_s_cpu": cpu_s}
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "auto_xgb", "rows": cfg["rows"],
+          "features": cfg["features"], "backend": "bundled hist_gbt",
+          "limit": "bit for bit against device='cpu'",
+          "results": results, "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"AutoXGBoost on the card failed its checks: {checks}")
+
+
 # --- SSD object-detection serving, BASELINE #5 -------------------------------
 
 def _od_images(n, size, seed):
@@ -3845,30 +4359,62 @@ def _time_in_turns(fns, reps=50, rounds=TIMING_ROUNDS, graphs=False):
     return samples
 
 
-def _profiled_ms(fn, calls=10, rounds=TIMING_ROUNDS):
-    """Device time per call of ``fn`` from torch.profiler, once per round:
-    the summed durations of the CUDA kernels (and copies) that ``calls``
-    calls launch, over ``calls``. For a call that does not capture in a
-    CUDA graph. The first session is discarded (it has come back without
-    device events), and so is any later one that has none."""
+def _profiled_ms(fns, calls=10, rounds=TIMING_ROUNDS):
+    """Device time per call of each of ``fns`` ({name: callable}) from
+    torch.profiler, in turns: each round profiles them in order and then
+    in reverse, one session of ``calls`` calls each. For calls that do not
+    capture in a CUDA graph. A session's reading is, over the kernels (and
+    copies) the call launches, each one's median duration in the session
+    times its launches per call (at least 1). Sessions lose device records
+    (none, or a share of every kernel's, even in all of a run's sessions:
+    summing them once read SDPA's backward at 0.035 and 0.094 ms against
+    0.19), so a count of records cannot give the time, but the durations
+    of the records kept can. A session missing a kernel entirely is
+    dropped, and so is the first round. Returns ({name: [ms]}, {name:
+    {"kept": sessions kept of sessions run, "events": each session's
+    device-record count, "kernels": {kernel: [launches per call, median
+    us]}}})."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
-    out = []
-    for _ in range(rounds + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        out.append(us / 1e3 / calls)
-    out = [x for x in out[1:] if x > 0]
-    if not out:
-        fail("the profiler saw no device time for the library call")
-    return out
+    sessions = {name: [] for name in fns}       # {kernel: [us]} a session
+    order = list(fns) + list(fns)[::-1]
+    for r in range(rounds + 1):
+        for name in order:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fns[name]()
+                torch.cuda.synchronize()
+            if not r:
+                continue
+            durations = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    durations.setdefault(e.name[:96], []).append(
+                        e.time_range.elapsed_us())
+            sessions[name].append(durations)
+    out, info = {}, {}
+    for name, xs in sessions.items():
+        launches = {}
+        for x in xs:
+            for kernel, us in x.items():
+                launches[kernel] = max(launches.get(kernel, 1),
+                                       round(len(us) / calls))
+        good = [x for x in xs if launches and set(x) == set(launches)]
+        if not good:
+            fail(f"the profiler saw no device time for {name}")
+        out[name] = [sum(n * statistics.median(x[k])
+                         for k, n in launches.items()) / 1e3 for x in good]
+        info[name] = {
+            "kept": f"{len(good)} of {len(xs)}",
+            "events": [sum(map(len, x.values())) for x in xs],
+            "kernels": {k: [n, statistics.median(
+                [us for x in good for us in x[k]])]
+                for k, n in launches.items()}}
+    return out, info
 
 
 def _spread(xs):
@@ -3876,7 +4422,8 @@ def _spread(xs):
 
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches, autots_launches, od_launches):
+                 fraud_launches, autots_launches, od_launches,
+                 slice_launches):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
     q/k/v strided views of the fused projection): the kernel's device time
     (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
@@ -3884,7 +4431,11 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     turns for SDPA's forward, the profiler's device time for its backward,
     which does not capture); both also eagerly in turns (``*_eager``,
     which holds the host's cost of each call); the plain version's time;
-    and the bound from the shapes."""
+    and the bound from the shapes. B2 + B3 are also timed the profiler's
+    way, in the same rounds as SDPA's backward
+    (``covered_pair_profiled_ms``), so the pair and its library call are
+    compared by one method. ``slice_launches``: each kernel's launches on
+    the ASHA slice's paths (all 0)."""
     from analytics_zoo_tpu_torch.ops import attention as at
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -3912,7 +4463,13 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     # device time: CUDA-graph replays in turns; SDPA's backward does not
     # capture in a graph, so its device time comes from the profiler
     dev = _time_in_turns(fwd_fns, graphs=True)
-    lib_bwd = _profiled_ms(bwd_fns["library"])
+
+    def pair_fn():
+        at.flash_bwd_dq(q, k, v, o, lse2, g)
+        at.flash_bwd_dkv(q, k, v, g, lse2, delta)
+    profiled, profile_info = _profiled_ms({"library": bwd_fns["library"],
+                                           "pair": pair_fn})
+    lib_bwd, prof_pair = profiled["library"], profiled["pair"]
     dev.update(_time_in_turns({n: f for n, f in bwd_fns.items()
                                if n != "library"}, graphs=True))
     # eager, as a user calls them: each kernel in turns with its library call
@@ -3983,23 +4540,35 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
                 "train": train_launches["flash_fwd"],
                 "fraud": fraud_launches["flash_fwd"],
                 "autots": autots_launches["flash_fwd"],
-                "od_serve": od_launches["flash_fwd"]}
+                "od_serve": od_launches["flash_fwd"],
+                **{path: counts[name]
+                   for path, counts in slice_launches.items()}}
             entry["library"] = "scaled_dot_product_attention forward"
             entry["library_timing"] = "CUDA-graph replays, in turns"
             entry["library_ms_eager"] = _spread(fwd["library"])
         else:
-            entry["launches_by_path"] = {"train": launches,
-                                         "fraud": fraud_launches[name],
-                                         "autots": autots_launches[name],
-                                         "od_serve": od_launches[name]}
+            entry["launches_by_path"] = {
+                "train": launches, "fraud": fraud_launches[name],
+                "autots": autots_launches[name],
+                "od_serve": od_launches[name],
+                **{path: counts[name]
+                   for path, counts in slice_launches.items()}}
             entry["library_covers"] = ["flash_bwd_dq", "flash_bwd_dkv"]
             entry["library"] = ("scaled_dot_product_attention backward "
                                 "(autograd.grad of one forward output)")
             entry["library_timing"] = (
-                f"torch.profiler device time, {len(lib_bwd)} rounds of 10 "
-                f"calls (it does not capture in a CUDA graph)")
+                f"torch.profiler device time, "
+                f"{profile_info['library']['kept']} sessions of 10 calls "
+                f"kept (it does not capture in a CUDA graph)")
+            entry["library_profile"] = profile_info["library"]
             entry["library_ms_eager"] = _spread(bwd["library"])
             entry["covered_pair_ms"] = _spread(dev_pair)
+            entry["covered_pair_profiled_ms"] = _spread(prof_pair)
+            entry["covered_pair_profiled_timing"] = (
+                f"torch.profiler device time, in the same rounds as the "
+                f"library's, {profile_info['pair']['kept']} sessions of 10 "
+                f"calls kept")
+            entry["covered_pair_profile"] = profile_info["pair"]
             entry["covered_pair_ms_eager"] = _spread(pair)
         out.append(entry)
     emit({"kernels": out})
@@ -4074,6 +4643,21 @@ def main():
     zouwu_vs_cpu_phase(card, df)
     zouwu_real_data_phase(card)
     auto_estimator_search_phase(card)
+    # this slice's paths reach no flash kernel: each is driven with the
+    # counts at 0 and must leave them there
+    slice_launches = {}
+    for name, run in (("asha_autots", lambda: asha_autots_phase(card, df)),
+                      ("asha_resume", lambda: asha_resume_phase(card)),
+                      ("estimator_preemption",
+                       lambda: estimator_preemption_phase(card)),
+                      ("auto_xgb", lambda: auto_xgb_phase(card))):
+        for fn in kernels:
+            fn.launches = 0
+        run()
+        slice_launches[name] = {fn.__name__: fn.launches for fn in kernels}
+    if any(n for counts in slice_launches.values() for n in counts.values()):
+        fail(f"a flash kernel launched on an ASHA-slice path: "
+             f"{slice_launches}")
     for fn in kernels:
         fn.launches = 0
     od_model, od_imgs = od_serve_phase(card)
@@ -4089,7 +4673,8 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels_line(errs, bwd_errs, serve_launches, train_launches,
-                 fraud_launches, autots_launches, od_launches)
+                 fraud_launches, autots_launches, od_launches,
+                 slice_launches)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

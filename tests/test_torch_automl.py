@@ -365,13 +365,24 @@ def test_keep_model_states_and_errors():
 
 
 def test_asha_not_ported():
+    """``scheduler="asha"`` is ported now (the runtime's own suite is
+    tests/test_torch_scheduler.py): the engine and ``AutoEstimator.fit``
+    run it, and only an unknown scheduler raises."""
     eng = TEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        eng.compile(None, _Stub, {"s": 1.0}, scheduler="asha")
+    eng.compile(None, _Stub, {"s": thp.grid_search([2.0, 1.0, 3.0])},
+                epochs=3, scheduler="asha")
+    trials = eng.run()
+    assert [t.state for t in trials] == ["done"] * 3
+    assert eng.get_best_trial() is trials[1]
+    assert eng.summary()["status"] == "completed"
+    with pytest.raises(ValueError, match="scheduler"):
+        TEngine(device="cpu").compile(None, _Stub, {}, scheduler="pbt")
     auto = AutoEstimator.from_torch(model_creator=lambda c: _MLP(),
                                     loss="mse", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        auto.fit(_data(32), scheduler="asha", search_space={"lr": 0.01})
+    auto.fit(_data(32), epochs=2, scheduler="asha",
+             search_space={"lr": thp.grid_search([0.01, 0.02])})
+    assert auto.search_summary()["epochs"]["exhaustive"] == 4
+    assert all(t.state == "done" for t in auto.get_trials())
 
 
 # --- AutoEstimator -------------------------------------------------------------

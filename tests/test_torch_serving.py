@@ -138,6 +138,9 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "automl", "automl.hp", "automl.model_builder", "automl.auto_estimator",
     "automl.search", "automl.search.bayes", "automl.search.search_engine",
     "automl.scheduler", "automl.scheduler.lease",
+    "automl.scheduler.asha", "automl.scheduler.events",
+    "automl.scheduler.runtime", "orca.learn.preemption",
+    "automl.xgboost", "automl.xgboost.hist_gbt", "automl.xgboost.auto_xgb",
     "zouwu", "zouwu.config", "zouwu.config.recipe", "zouwu.feature",
     "zouwu.feature.time_sequence", "zouwu.preprocessing",
     "zouwu.preprocessing.impute", "zouwu.model", "zouwu.model.nets",

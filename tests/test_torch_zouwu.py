@@ -562,9 +562,16 @@ def test_autots_matches_jax(orca_context, tmp_path, name, kwargs):
 
 
 def test_autots_asha_not_ported():
+    """``AutoTSTrainer(scheduler="asha")`` is ported now (its end-to-end
+    test is in tests/test_torch_scheduler.py): a smoke recipe's search
+    runs through the rung scheduler and yields a pipeline."""
     tr = tautots.AutoTSTrainer(horizon=1, device="cpu", scheduler="asha")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tr.fit(make_series(100), recipe=trecipe.SmokeRecipe())
+    pipe = tr.fit(make_series(100), recipe=trecipe.SmokeRecipe())
+    summary = tr.engine.summary()
+    assert summary["status"] == "completed"
+    assert summary["trials"]["done"] == len(tr.engine._trials)
+    assert np.isfinite(pipe.evaluate(make_series(100),
+                                     metrics=["mse"])["mse"])
 
 
 def test_device_rule(monkeypatch):
