@@ -31,11 +31,11 @@ than a static map:
   line in ``logs_dir/study_events.jsonl``, with the JAX package's event
   names and fields (a lease's index is its ``chip``).
 * **No compile cache**: the port has no compile plane (ROADMAP A12).
-  ``compile_cache`` is kept, with the builder's signature detection, so
-  the constructor matches the JAX runtime's; ``None`` and ``False`` both
-  mean no cache (``summary()["compile"]`` is ``{}``, as the JAX runtime's
-  is under ``compile_cache=False``), and a cache object raises
-  ``NotImplementedError``.
+  ``compile_cache`` is kept so the constructor matches the JAX runtime's;
+  ``None`` and ``False`` both mean no cache (``summary()["compile"]`` is
+  ``{}``, as the JAX runtime's is under ``compile_cache=False``), a cache
+  object raises ``NotImplementedError``, and builders are called as
+  ``model_builder(config, device)``.
 
 The ``fit_eval`` protocol is extended, not replaced — capabilities are
 detected by signature so existing model builders keep working unchanged:
@@ -59,7 +59,6 @@ import inspect
 import json
 import logging
 import os
-import pickle
 import threading
 import time
 import traceback
@@ -196,12 +195,6 @@ class TrialRuntime:
                 "A12); pass None or False")
         self.trials = trials
         self.model_builder = model_builder
-        self.compile_cache = None
-        try:
-            self._builder_takes_cache = "compile_cache" in \
-                inspect.signature(model_builder).parameters
-        except (TypeError, ValueError):
-            self._builder_takes_cache = False
         self.data = data
         self.validation_data = validation_data
         self.metric = metric
@@ -334,21 +327,18 @@ class TrialRuntime:
         if not path:
             return None
         try:
-            if os.path.isdir(path) or not os.path.exists(path):
-                # checkpoint-plane dir (manifest + blobs): load EXACTLY the
-                # recorded dir, digest-verified, after flushing pending
-                # writes. Never "newest step under this trial's name" —
-                # logs_dir is commonly reused across studies (the
-                # AutoEstimator default is a fixed /tmp path), and a stale
-                # higher-step checkpoint from a previous study would
-                # masquerade as this trial's future, silently skipping its
-                # remaining training.
-                if self._ckpt_plane is not None:
-                    self._ckpt_plane.flush()
-                from ...ckpt import load_checkpoint_dir
-                return load_checkpoint_dir(path)
-            with open(path, "rb") as f:        # legacy pickle checkpoint
-                return pickle.load(f)
+            # checkpoint-plane dir (manifest + blobs): load EXACTLY the
+            # recorded dir, digest-verified, after flushing pending writes.
+            # Never "newest step under this trial's name" — logs_dir is
+            # commonly reused across studies (the AutoEstimator default is
+            # a fixed /tmp path), and a stale higher-step checkpoint from a
+            # previous study would masquerade as this trial's future,
+            # silently skipping its remaining training. Any other recorded
+            # path is unreadable: the trial restarts from scratch.
+            if self._ckpt_plane is not None:
+                self._ckpt_plane.flush()
+            from ...ckpt import load_checkpoint_dir
+            return load_checkpoint_dir(path)
         except Exception as e:          # noqa: BLE001
             logger.warning("trial %s checkpoint unreadable (%s); "
                            "restarting from scratch", trial_id, e)
@@ -541,7 +531,7 @@ class TrialRuntime:
     def _train_slice(self, trial, ctx: TrialContext, device,
                      start_done: int):
         rec = self._rec[trial.trial_id]
-        model = self._build_model(trial.config, device)
+        model = self.model_builder(trial.config, device)
         caps = _fit_eval_caps(model.fit_eval)
         state_in = self._load_state(trial.trial_id) if start_done else None
         if caps["state"] is False and state_in is not None:
@@ -559,15 +549,6 @@ class TrialRuntime:
         self._account(rec, spent, ctx.epochs_done)
         return score, metrics, state
 
-    def _build_model(self, config, device):
-        """Hand a compile cache to builders that accept it
-        (signature-detected like the fit_eval protocol extensions, so
-        legacy builders keep working unchanged). The port has none yet
-        (ROADMAP A12), so builders get ``(config, device)``."""
-        if self.compile_cache is not None and self._builder_takes_cache:
-            return self.model_builder(config, device,
-                                      compile_cache=self.compile_cache)
-        return self.model_builder(config, device)
 
     def _account(self, rec, spent: int, epochs_done: int):
         with self._lock:

@@ -3625,9 +3625,12 @@ def estimator_preemption_phase(card, dev="cuda"):
 def auto_xgb_phase(card, dev="cuda"):
     """``AutoXGBRegressor`` (XgbRegressorGridRandomRecipe) and
     ``AutoXGBClassifier`` through the engine on the card's lease: every
-    trial ``done`` on the leased device; the best config and predictions
-    equal a ``device="cpu"`` run's bit for bit (the trees are numpy on
-    both; the bundled histogram GBT, as xgboost is not installed)."""
+    trial ``done`` on the leased device. The trees are host numpy under
+    either lease (the bundled histogram GBT, as xgboost is not installed),
+    so a ``device="cpu"`` run must give the same best config and
+    predictions bit for bit: a determinism check of the search, not a
+    reference. Parity with the JAX package is held on the CPU by
+    tests/test_torch_scheduler.py::test_auto_xgb_equals_jax."""
     from analytics_zoo_tpu_torch.automl import hp
     from analytics_zoo_tpu_torch.automl.xgboost import (AutoXGBClassifier,
                                                         AutoXGBRegressor)
@@ -3670,10 +3673,10 @@ def auto_xgb_phase(card, dev="cuda"):
                    else float(np.mean(pred == val[1])))
         checks[f"{kind}_trials_done_on_{leased}"] = all(
             t.state == "done" and t.device == leased for t in trials)
-        checks[f"{kind}_best_config_equals_cpu"] = \
+        checks[f"{kind}_best_config_same_under_cpu_lease"] = \
             card_auto.get_best_config() == cpu_auto.get_best_config()
-        checks[f"{kind}_predictions_equal_cpu"] = bool(np.array_equal(
-            pred, cpu_auto.predict(val[0])))
+        checks[f"{kind}_predictions_same_under_cpu_lease"] = bool(
+            np.array_equal(pred, cpu_auto.predict(val[0])))
         checks[f"{kind}_beats_baseline"] = (quality < 0.7
                                             if kind == "regressor"
                                             else quality > 0.9)
@@ -3686,7 +3689,9 @@ def auto_xgb_phase(card, dev="cuda"):
     checks = {k: bool(v) for k, v in checks.items()}
     emit({"phase": "auto_xgb", "rows": cfg["rows"],
           "features": cfg["features"], "backend": "bundled hist_gbt",
-          "limit": "bit for bit against device='cpu'",
+          "limit": ("determinism: bit for bit against a device='cpu' "
+                    "lease of the same host search; JAX parity is "
+                    "test_auto_xgb_equals_jax on the CPU"),
           "results": results, "checks": checks, "card": card})
     if not all(checks.values()):
         fail(f"AutoXGBoost on the card failed its checks: {checks}")
@@ -4370,10 +4375,12 @@ def _profiled_ms(fns, calls=10, rounds=TIMING_ROUNDS):
     summing them once read SDPA's backward at 0.035 and 0.094 ms against
     0.19), so a count of records cannot give the time, but the durations
     of the records kept can. A session missing a kernel entirely is
-    dropped, and so is the first round. Returns ({name: [ms]}, {name:
-    {"kept": sessions kept of sessions run, "events": each session's
-    device-record count, "kernels": {kernel: [launches per call, median
-    us]}}})."""
+    dropped, and so is the first round. The earlier method, the summed
+    durations of a session's records over ``calls`` (sessions with none
+    dropped), is read beside it, so the change of method shows in every
+    run. Returns ({name: [ms]}, {name: {"kept": sessions kept of sessions
+    run, "events": each session's device-record count, "kernels": {kernel:
+    [launches per call, median us]}, "record_sum_ms": [ms] a session}})."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns.values():
         for _ in range(3):
@@ -4408,8 +4415,10 @@ def _profiled_ms(fns, calls=10, rounds=TIMING_ROUNDS):
             fail(f"the profiler saw no device time for {name}")
         out[name] = [sum(n * statistics.median(x[k])
                          for k, n in launches.items()) / 1e3 for x in good]
+        record_sums = [sum(map(sum, x.values())) / 1e3 / calls for x in xs]
         info[name] = {
             "kept": f"{len(good)} of {len(xs)}",
+            "record_sum_ms": [t for t in record_sums if t > 0],
             "events": [sum(map(len, x.values())) for x in xs],
             "kernels": {k: [n, statistics.median(
                 [us for x in good for us in x[k]])]
@@ -4419,6 +4428,10 @@ def _profiled_ms(fns, calls=10, rounds=TIMING_ROUNDS):
 
 def _spread(xs):
     return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def _spread_or_none(xs):
+    return _spread(xs) if xs else None
 
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches,
@@ -4561,6 +4574,10 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
                 f"{profile_info['library']['kept']} sessions of 10 calls "
                 f"kept (it does not capture in a CUDA graph)")
             entry["library_profile"] = profile_info["library"]
+            # library_ms is median kernel durations times launches; the
+            # record sum is how library_ms was read before
+            entry["library_ms_record_sum"] = _spread_or_none(
+                profile_info["library"]["record_sum_ms"])
             entry["library_ms_eager"] = _spread(bwd["library"])
             entry["covered_pair_ms"] = _spread(dev_pair)
             entry["covered_pair_profiled_ms"] = _spread(prof_pair)
@@ -4569,6 +4586,8 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
                 f"library's, {profile_info['pair']['kept']} sessions of 10 "
                 f"calls kept")
             entry["covered_pair_profile"] = profile_info["pair"]
+            entry["covered_pair_profiled_ms_record_sum"] = _spread_or_none(
+                profile_info["pair"]["record_sum_ms"])
             entry["covered_pair_ms_eager"] = _spread(pair)
         out.append(entry)
     emit({"kernels": out})

@@ -365,9 +365,10 @@ def test_keep_model_states_and_errors():
 
 
 def test_asha_not_ported():
-    """``scheduler="asha"`` is ported now (the runtime's own suite is
-    tests/test_torch_scheduler.py): the engine and ``AutoEstimator.fit``
-    run it, and only an unknown scheduler raises."""
+    """The engine and ``AutoEstimator.fit`` run ``scheduler="asha"`` to
+    completion, and only an unknown scheduler raises. (The name is kept
+    from when this test held the raise of the unported scheduler; the
+    runtime's own suite is tests/test_torch_scheduler.py.)"""
     eng = TEngine(device="cpu")
     eng.compile(None, _Stub, {"s": thp.grid_search([2.0, 1.0, 3.0])},
                 epochs=3, scheduler="asha")

@@ -18,6 +18,7 @@ package's.
 
 import json
 import os
+import pickle
 import signal
 import threading
 import time
@@ -409,6 +410,46 @@ def test_runtime_resumes_trials_stranded_as_running(tmp_path):
     trials2 = _fake_trials(4)
     rt2 = _runtime(trials2, max_t=4, eta=2, logs_dir=logs)
     rt2.run(resume=True)
+    assert rt2.summary()["status"] == "completed"
+    assert trials2[0].state == "done"
+    assert trials2[0].metric_value is not None
+
+
+class _MkdirOnUnpickle:
+    """Creates ``path`` when unpickled: shows whether a file was loaded."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __reduce__(self):
+        return os.mkdir, (self.path,)
+
+
+def test_runtime_reads_no_pickle_a_manifest_names(tmp_path):
+    # a manifest adopted from a reused logs_dir may name any file as a
+    # trial's checkpoint: only a checkpoint-plane directory is loaded, and
+    # anything else restarts the trial from scratch without unpickling it
+    logs = str(tmp_path / "reused")
+    trials = _fake_trials(4)
+    rt = _runtime(trials, max_t=4, eta=2, logs_dir=logs)
+    rt.run()
+    marker = str(tmp_path / "unpickled")
+    planted = str(tmp_path / "planted.pkl")
+    with open(planted, "wb") as f:
+        pickle.dump(_MkdirOnUnpickle(marker), f)
+    path = os.path.join(logs, "study_state.json")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["status"] = "preempted"
+    doc["trials"][0].update(status="paused", score=None, epochs_done=1,
+                            runnable=True, ckpt=planted)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+    trials2 = _fake_trials(4)
+    rt2 = _runtime(trials2, max_t=4, eta=2, logs_dir=logs)
+    rt2.run(resume=True)
+    assert not os.path.exists(marker)
     assert rt2.summary()["status"] == "completed"
     assert trials2[0].state == "done"
     assert trials2[0].metric_value is not None

@@ -562,9 +562,10 @@ def test_autots_matches_jax(orca_context, tmp_path, name, kwargs):
 
 
 def test_autots_asha_not_ported():
-    """``AutoTSTrainer(scheduler="asha")`` is ported now (its end-to-end
-    test is in tests/test_torch_scheduler.py): a smoke recipe's search
-    runs through the rung scheduler and yields a pipeline."""
+    """``AutoTSTrainer(scheduler="asha")`` runs a smoke recipe's search
+    through the rung scheduler and yields a pipeline. (The name is kept
+    from when this test held the raise of the unported scheduler; the
+    end-to-end test is in tests/test_torch_scheduler.py.)"""
     tr = tautots.AutoTSTrainer(horizon=1, device="cpu", scheduler="asha")
     pipe = tr.fit(make_series(100), recipe=trecipe.SmokeRecipe())
     summary = tr.engine.summary()
