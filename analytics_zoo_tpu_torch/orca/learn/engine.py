@@ -53,6 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...obs import trace as _trace
 from ...pipeline.api.keras.layers.self_attention import DrawsRandom
 from .metrics import Metric
 from .utils import Batch
@@ -233,8 +234,11 @@ class TrainEngine:
         """One optimizer step on a host batch; returns the loss as a device
         scalar (read it after the epoch, so the host keeps issuing)."""
         t0 = time.perf_counter()
-        b = batch.to(self.device)
-        loss = self._train_step(b.x, b.y, b.w)
+        # obs span (one flag check disarmed): the step-indexed segment the
+        # Perfetto timeline renders
+        with _trace.span("engine.dispatch", step=self.step):
+            b = batch.to(self.device)
+            loss = self._train_step(b.x, b.y, b.w)
         self.step += 1
         if self.pipeline_stats is not None:
             self.pipeline_stats.add("step", time.perf_counter() - t0)

@@ -61,6 +61,7 @@ import torch
 
 from ...common.context import resolve_device
 from ...native.infeed import PipelineStats
+from ...obs import trace as _trace
 from ..data.shard import HostXShards
 from . import utils as learn_utils
 from .engine import TrainEngine
@@ -370,11 +371,16 @@ class TPUEstimator:
         try:
             with (watcher if watcher is not None
                   else contextlib.nullcontext()):
-                return self._fit_loop(it, epochs, steps_per_epoch,
-                                      batch_size, feature_cols, label_cols,
-                                      validation_data, trigger, profile,
-                                      verbose, can_recover, retries_left,
-                                      watcher)
+                # root span of the training trace (obs plane): epoch,
+                # dispatch, infeed-lane and ckpt-writer spans chain under
+                # this trace id
+                with _trace.span("fit", epochs=epochs,
+                                 initial_epoch=initial_epoch):
+                    return self._fit_loop(
+                        it, epochs, steps_per_epoch, batch_size,
+                        feature_cols, label_cols, validation_data, trigger,
+                        profile, verbose, can_recover, retries_left,
+                        watcher)
         finally:
             # a failed async write gets one blocking retry
             if not self.flush_checkpoints() and self.model_dir is not None:
@@ -391,8 +397,9 @@ class TPUEstimator:
         ep = 0
         while ep < epochs:
             try:
-                stats = self._fit_epoch(it, ep, steps_per_epoch, trigger,
-                                        profile, watcher)
+                with _trace.span("epoch", epoch=ep):
+                    stats = self._fit_epoch(it, ep, steps_per_epoch,
+                                            trigger, profile, watcher)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:

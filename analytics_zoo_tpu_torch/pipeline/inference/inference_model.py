@@ -17,7 +17,10 @@ weight-only int8 quantization (``quantize``), whole-model files
 (``save``/``load``, and ``save_encrypted``/``load_encrypted`` sealed by
 ``utils/crypto``), checkpoint-plane checkpoints (``save_checkpoint``/
 ``load_checkpoint``) and hot reload from a watched checkpoint root
-(``enable_hot_reload``, counters in ``ckpt_stats``).
+(``enable_hot_reload``, counters in ``ckpt_stats``). ``load_torch``
+serves a user's ``nn.Module`` as it is, ``distributed_predict`` predicts
+over XShards, and ``transfer_stats`` counts the bytes and seconds of
+every host -> device copy of ``predict``.
 
 Saved state is plain values: the module's ``state_dict`` as CPU tensors
 and, for a module of this package with ``config`` and ``from_config``
@@ -29,7 +32,8 @@ module a JAX serving checkpoint pickles is never run (the checkpoint
 reader turns it into a stand-in), so adopting it needs a module loaded
 first, as the JAX package needs one for an estimator checkpoint.
 
-Not ported yet: the TF/torch-to-flax loaders and multi-GPU batch sharding.
+Not ported yet: the TF loaders (ROADMAP A9) and multi-GPU batch sharding
+(A10).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import logging
 import math
 import os
 import threading
+import time
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -48,6 +53,7 @@ import torch
 from torch import nn
 
 from ...common.context import resolve_device
+from ...native.infeed import PipelineStats
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -167,6 +173,8 @@ class InferenceModel:
         self._ckpt_counters: Dict = {"hot_reloads": 0, "full_reloads": 0,
                                      "reload_skips": 0,
                                      "last_reload_step": None}
+        # serving-ingress transfers (predict's host -> device copies)
+        self._tstats = PipelineStats()
 
     @property
     def device_count(self) -> int:
@@ -175,6 +183,12 @@ class InferenceModel:
     @property
     def module(self) -> Optional[nn.Module]:
         return self._module
+
+    def transfer_stats(self) -> Dict:
+        """Serving-ingress transfer counters (h2d seconds/bytes/MB/s) of
+        ``predict``'s host -> device copies; the serving engine's
+        ``metrics()`` shows them as ``"transfer"``."""
+        return self._tstats.snapshot()
 
     def set_prologue(self, prologue) -> "InferenceModel":
         """Run an on-device input prologue (cast + normalize + ...) before
@@ -202,6 +216,12 @@ class InferenceModel:
         self._module = module.to(self.device).eval()
         self._cache.clear()
         return self
+
+    def load_torch(self, torch_module: nn.Module) -> "InferenceModel":
+        """Serve a user's torch module as it is, on this model's device
+        (the JAX package converts it to flax; here it needs no
+        conversion)."""
+        return self.load_module(torch_module)
 
     # --- int8 weight quantization -------------------------------------------
     def quantize(self, min_elements: int = 4096) -> "InferenceModel":
@@ -448,10 +468,15 @@ class InferenceModel:
         return self
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t0 = time.perf_counter()
+        a = np.ascontiguousarray(arr)
+        t = torch.from_numpy(a)
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        else:
+            t = t.to(self.device)
+        self._tstats.add("h2d", time.perf_counter() - t0, nbytes=a.nbytes)
+        return t
 
     def predict(self, inputs):
         """Bucketed batch predict: numpy in, numpy out (a tuple/list of
@@ -477,6 +502,18 @@ class InferenceModel:
         if isinstance(out, (list, tuple)):
             return type(out)(o.cpu().numpy()[:n] for o in out)
         return out.cpu().numpy()[:n]
+
+    def distributed_predict(self, shards, batch_size: int = 64):
+        """Predict over XShards (reference: PythonOrca.
+        inferenceModelDistriPredict): each partition's features through
+        :meth:`predict`, returned as XShards of ``{"prediction": ...}``."""
+        from ...orca.learn.utils import xshards_from_arrays
+        norm = xshards_from_arrays(shards)
+
+        def run(part):
+            return {"prediction": self.predict(list(part["x"]))}
+
+        return norm.transform_shard(run)
 
 
 def _dtype_name(a) -> str:

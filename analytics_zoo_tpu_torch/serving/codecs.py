@@ -15,6 +15,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
+# imported with the module, not at first use as the JAX package does: with
+# pyarrow 25's default allocator (mimalloc), a first import on a thread
+# that later exits (a frontend's event-loop thread, an engine thread) made
+# later encodes on other threads segfault
+import pyarrow as pa
 
 
 @dataclass
@@ -73,7 +78,6 @@ def densify(data):
 
 
 def encode_ndarray(arr: np.ndarray) -> str:
-    import pyarrow as pa
     arr = np.ascontiguousarray(arr)
     tensor = pa.Tensor.from_numpy(arr)
     sink = pa.BufferOutputStream()
@@ -82,7 +86,6 @@ def encode_ndarray(arr: np.ndarray) -> str:
 
 
 def decode_ndarray(s: str) -> np.ndarray:
-    import pyarrow as pa
     buf = base64.b64decode(s)
     tensor = pa.ipc.read_tensor(pa.BufferReader(buf))
     return tensor.to_numpy()

@@ -143,6 +143,27 @@ Then, with SSD object detection served through Cluster Serving, BASELINE
   answers against ``predict_image_set`` and encrypted models
   (``od_hot_reload``).
 
+Then, with the serving tier's processes, it
+
+* serves the same SSD300, saved with ``InferenceModel.save``, through
+  ``ServingFleet`` worker processes (1, 2 and 4 on the one card) over one
+  ``MiniRedisServer`` stream, 256 uint8 requests a leg from a client
+  process, each answer held against the parent's ``predict`` and each
+  worker pid shown holding card memory (``od_fleet``);
+* puts two of the port's HTTP frontends in fleet mode in front of a
+  2-worker fleet: 16 f32 JSON requests from a client process, ``/readyz``,
+  ``/metrics``, ``/metrics.prom`` and one trace id crossing from a frontend
+  into a worker (``http_fleet``);
+* SIGKILLs one of two SSD300 workers mid-run: every request answered, the
+  dead worker's claims reclaimed, the worker respawned (``fleet_chaos``);
+* scales ``SleepModel`` workers from 1 to 2 and overloads one 10x
+  (``fleet_topology``, host-only, the JAX bench's gates);
+* exports the demo fit's Perfetto timeline through ``python -m
+  analytics_zoo_tpu_torch.obs perfetto`` (``obs_export``);
+* serves a user's torch module through ``InferenceModel.load_torch``,
+  predicts over XShards and counts the transfer bytes
+  (``inference_ride_alongs``).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -163,8 +184,12 @@ import tempfile
 import time
 from functools import partial
 
-import numpy as np
-import torch
+# the smoke's own timeline (``at_s`` on each phase line) starts before
+# numpy and torch load
+_T0 = time.perf_counter()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -456,7 +481,44 @@ OD_RELOAD = dict(images=32, batch=8, epochs=6)
 TOL_OD_RELOAD = 1e-2
 
 
+# The serving tier's processes (slice 12): the SSD300 above (OD's widths,
+# bf16 trunk, batch 64, 5 ms timeout, 100 detections) served by
+# ServingFleet worker processes on the one card over one MiniRedisServer
+# stream (claim_idle_ms 800), M = 1, 2 and 4; a client process sends a
+# warm-up of 64 requests a worker, then 256 uint8 requests as one burst.
+# A worker admits at most two batches (max_inflight 128, as the JAX
+# bench's fleet), so the backlog stays on the stream for every worker.
+# http_fleet: two HTTP frontends, 16 f32 JSON requests to 2 workers.
+# Answers are held with TOL_OD_SERVED_* (the workers' batches pad to other
+# buckets than the parent's predict chunks).
+FLEET = dict(workers=(1, 2, 4), requests=256, warm_per_worker=64,
+             claim_idle_ms=800, http_requests=16, frontends=2,
+             live_timeout_s=300)
+# fleet_topology: the JAX bench's legs 1-3 (bench.py bench_serving_fleet)
+# on SleepModel, 100 ms a batch of 4 (40 records/s a worker). Gates, the
+# JAX smoke's: 2-worker goodput >= 1.5x the 1-worker goodput (reading ~2x;
+# control, one worker at 10x offered load, ~1x, must miss); admitted p99
+# under 10x overload <= deadline 600 ms + 150 ms (reading ~deadline or
+# less; control, the same overload with a deadline nothing reaches, queues
+# for seconds, must miss).
+TOPOLOGY = dict(batch_ms=100.0, batch=4, dur_s=3.0, deadline_s=2.5,
+                over_dur_s=1.5, over_deadline_s=0.6, control_dur_s=0.5,
+                scaleout_min=1.5, p99_slack_ms=150.0)
+OBS_DEMO_STEPS = 8
+# A user's torch MLP through InferenceModel.load_torch, served by
+# ClusterServing: answers against the module's own forward on the card,
+# relative to the largest, f32 with TF32 off (served batches pad to other
+# buckets, so other GEMM shapes: f32 ulps); the control, the answers
+# shifted by one row, must miss.
+RIDE = dict(rows=200, features=64, hidden=256, classes=10)
+TOL_LOAD_TORCH = 1e-5
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``at_s``), the smoke's own timeline."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -4306,6 +4368,918 @@ def od_hot_reload_phase(card, root):
         fail(f"hot reload on the card failed its checks: {checks}")
 
 
+# --- the serving tier's processes: fleet workers, HTTP frontends, obs -------
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _report_launches(report_dir, model):
+    """Has this process report its own flash-kernel launch counts (each
+    wrapper's ``.launches``) in ``report_dir/launches-<pid>.json``: now,
+    after every ``model.predict`` that changed them, and at exit. A
+    SIGKILLed worker's file holds its counts as of its last finished
+    predict."""
+    import atexit
+
+    from analytics_zoo_tpu_torch.ops import attention as at
+    kernels = [getattr(at, name) for name in FLASH_KERNELS]
+    path = os.path.join(report_dir, f"launches-{os.getpid()}.json")
+    written = {}
+
+    def write():
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        if counts != written:
+            with open(path + ".tmp", "w") as f:
+                json.dump({"pid": os.getpid(), "launches": counts}, f)
+            os.replace(path + ".tmp", path)
+            written.update(counts)
+
+    predict = model.predict
+
+    def counted_predict(*args, **kwargs):
+        try:
+            return predict(*args, **kwargs)
+        finally:
+            write()
+
+    model.predict = counted_predict
+    write()
+    atexit.register(write)
+
+
+def _counted_factory(report_dir, factory):
+    """A fleet worker's model factory whose worker reports its own kernel
+    launches (``_report_launches``); module-level, so it pickles across
+    the spawn boundary."""
+    model = factory()
+    _report_launches(report_dir, model)
+    return model
+
+
+def _worker_launches(report_dir):
+    """The workers' launch reports in ``report_dir``: each worker's
+    counts by pid, and their sum by kernel."""
+    per = {}
+    for name in os.listdir(report_dir):
+        if name.startswith("launches-") and name.endswith(".json"):
+            with open(os.path.join(report_dir, name)) as f:
+                rep = json.load(f)
+            per[rep["pid"]] = rep["launches"]
+    return per, {k: sum(c[k] for c in per.values()) for k in FLASH_KERNELS}
+
+
+def _fleet_model(path, uint8, report_dir):
+    """A fleet worker's model factory (module-level, so it pickles across
+    the spawn boundary): the saved SSD300 servable loaded onto the card,
+    with the ``rescale(1/255)`` prologue when requests travel as uint8,
+    every bucket up to the batch warmed (as ``ClusterServing.start(
+    example=...)`` warms an embedded engine). Writes the worker's pid,
+    device and the card memory it holds to ``report_dir``."""
+    from analytics_zoo_tpu_torch.orca.learn.prologue import rescale
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    model = InferenceModel().load(path)
+    if uint8:
+        model.set_prologue(rescale(1 / 255))
+    model.precompile(np.zeros((1, OD["size"], OD["size"], 3),
+                              np.uint8 if uint8 else np.float32),
+                     max_bucket=OD["batch"])
+    with open(os.path.join(report_dir, f"worker-{os.getpid()}.json"),
+              "w") as f:
+        json.dump({"pid": os.getpid(), "device": str(model.device),
+                   "params_on_card": _on_card(model.module),
+                   "serve_dtype": str(model.module.serve_dtype),
+                   "cuda_allocated_bytes": torch.cuda.memory_allocated()},
+                  f)
+    return model
+
+
+def _wait_go(go):
+    if not go.wait(FLEET["live_timeout_s"] + 120):
+        raise RuntimeError("the fleet never went live")
+
+
+def _fleet_client(go, spec, imgs_path, out_path, warm, prefix):
+    """One fleet leg's client, in its own process (``_start_client``):
+    once ``go`` is set, ``warm`` untimed requests, then every image in
+    ``imgs_path`` enqueued as one burst through ``InputQueue`` and each
+    answer fetched. Writes the answers, each request's latency (enqueue to
+    the engine's ``t_done``), the leg's wall time and the client's CPU
+    time to ``out_path``."""
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+    from analytics_zoo_tpu_torch.serving.codecs import decode_payload
+    imgs = np.load(imgs_path)
+    _wait_go(go)
+    iq, oq = InputQueue(spec), OutputQueue(spec)
+    oq.dequeue([iq.enqueue(f"{prefix}-warm-{i}", t=imgs[i % len(imgs)])
+                for i in range(warm)], timeout_s=600)
+    cpu0, t0 = time.process_time(), time.perf_counter()
+    sent = {}
+    for i in range(len(imgs)):
+        sent[iq.enqueue(f"{prefix}-{i}", t=imgs[i])] = time.time()
+    answers, latency = [], []
+    for uri, t_sent in sent.items():
+        raw = oq.broker.get_result(uri, 600)
+        if raw is None:
+            raise RuntimeError(f"no answer for {uri}")
+        data, meta = decode_payload(raw)
+        if meta.get("error"):
+            raise RuntimeError(f"{uri}: {meta['error']}")
+        answers.append(data)
+        latency.append(meta.get("t_done", float("nan")) - t_sent)
+    np.savez(out_path, answers=np.stack(answers),
+             latency_s=np.array(latency),
+             seconds=time.perf_counter() - t0,
+             client_cpu_s=time.process_time() - cpu0)
+
+
+def _http_client(go, ports, imgs_path, out_path):
+    """The HTTP leg's client, in its own process (``_start_client``): once
+    ``go`` is set, each f32 image as one ``POST /predict`` JSON body,
+    alternately to the frontends, four requests in flight."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+    imgs = np.load(imgs_path)
+    _wait_go(go)
+
+    def post(i):
+        conn = http.client.HTTPConnection("127.0.0.1", ports[i % len(ports)],
+                                          timeout=600)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=json.dumps(
+                {"instances": [imgs[i].tolist()]}),
+                headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            body = r.read()
+            if r.status != 200:
+                raise RuntimeError(f"request {i}: {r.status} {body[:200]}")
+            return (np.asarray(json.loads(body)["predictions"][0],
+                               np.float32), time.perf_counter() - t0)
+        finally:
+            conn.close()
+
+    with ThreadPoolExecutor(4) as pool:
+        out = list(pool.map(post, range(len(imgs))))
+    np.savez(out_path, answers=np.stack([a for a, _ in out]),
+             latency_s=np.array([t for _, t in out]))
+
+
+def _start_client(target, *args):
+    """Starts ``target(go, *args)`` in a spawned process, so that it
+    imports while the fleet spawns; it begins once ``go`` is set. Returns
+    the process and ``go``."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    go = ctx.Event()
+    p = ctx.Process(target=target, args=(go, *args), name="fleet-client")
+    p.start()
+    return p, go
+
+
+def _join_client(p, timeout_s=900):
+    """Waits for a ``_start_client`` process; fails on a non-zero exit or
+    the time limit."""
+    p.join(timeout_s)
+    if p.is_alive():
+        p.kill()
+        p.join()
+        fail(f"{p.name} did not finish in {timeout_s} s")
+    if p.exitcode != 0:
+        fail(f"{p.name} exited {p.exitcode}")
+
+
+def _gpu_apps():
+    """``[[pid, used MiB], ...]`` of the processes nvidia-smi lists on the
+    card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [[int(pid), float(mem)] for pid, mem in (
+        (f.strip() for f in line.split(",")) for line in
+        out.strip().splitlines())]
+
+
+def _worker_reports(report_dir):
+    """The workers' own reports (``_fleet_model``) and their final engine
+    metrics (the drain snapshot ``ServingFleet`` writes to its
+    ``trace_dir``)."""
+    reports, metrics = {}, {}
+    for name in os.listdir(report_dir):
+        with open(os.path.join(report_dir, name)) as f:
+            if name.startswith("worker-"):
+                rep = json.load(f)
+                reports[rep["pid"]] = rep
+            elif name.startswith("metrics-"):
+                metrics[name[len("metrics-"):-len(".json")]] = json.load(f)
+    return reports, metrics
+
+
+def _stage_summary(metrics):
+    """Each worker's engine stages: count and p50/p95 ms."""
+    return {wid: {stage: {k: v for k, v in s.items()
+                          if k in ("count", "p50_ms", "p95_ms")}
+                  for stage, s in m.get("stages", {}).items()}
+            for wid, m in metrics.items()}
+
+
+def _fleet_spec(srv, stream):
+    return (f"redis://{srv.host}:{srv.port}/{stream}"
+            f"?claim_idle_ms={FLEET['claim_idle_ms']}")
+
+
+def _start_fleet(path, spec, workers, uint8, report_dir, **kw):
+    """A ServingFleet of ``workers`` SSD300 workers on the card, live;
+    returns it and the seconds from spawn to ``wait_live``."""
+    from analytics_zoo_tpu_torch.serving import ServingFleet
+    os.makedirs(report_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    fleet = ServingFleet(
+        partial(_counted_factory, report_dir,
+                partial(_fleet_model, path, uint8, report_dir)), spec,
+        workers=workers, autoscale=False, batch_size=OD["batch"],
+        batch_timeout_ms=OD["timeout_ms"], max_inflight=2 * OD["batch"],
+        drain_s=60.0, trace_dir=report_dir, **kw).start()
+    deadline = time.time() + FLEET["live_timeout_s"]
+    while not fleet.wait_live(workers, 1.0):
+        # with autoscale off nothing retires a worker: a restart before
+        # the fleet is live is a worker that died starting
+        if fleet.metrics()["restarts"] or time.time() > deadline:
+            snap = fleet.stop(timeout_s=60)
+            fail(f"{workers} fleet workers never went live: {snap}")
+    return fleet, time.perf_counter() - t0
+
+
+def _on_card_checks(name, fleet_pids, reports, before, apps, after):
+    """Each worker holds memory on the card and reports its model's
+    parameters on cuda. nvidia-smi lists one row per process holding a
+    CUDA context on the card, under pids of its own namespace (on the
+    card's machine no row carries a worker's pid), so the rows are
+    counted: the listing taken while the fleet served must hold one row
+    more a worker than ``before`` (taken before the fleet started), each
+    row with memory; the control, ``after`` (taken once the fleet
+    stopped), must be back to ``before``'s rows."""
+    return {
+        f"{name}_workers_hold_card_memory": (
+            len(apps) - len(before) == len(fleet_pids)
+            and all(mib > 0 for _, mib in apps)),
+        f"{name}_control_rows_back_after_stop": len(after) == len(before),
+        f"{name}_workers_report_cuda": all(
+            reports.get(pid, {}).get("params_on_card")
+            and reports[pid]["device"].startswith("cuda")
+            and reports[pid]["cuda_allocated_bytes"] > 0
+            for pid in fleet_pids)}
+
+
+def _held(got, want, name, checks):
+    held = _od_hold(got, want, TOL_OD_SERVED_SCORE, TOL_OD_SERVED_BOX)
+    held["control_shifted_worst"] = _od_hold(
+        got, np.roll(want, 1, 0), TOL_OD_SERVED_SCORE,
+        TOL_OD_SERVED_BOX)["worst"]
+    checks[f"{name}_as_predict"] = (held["rows_held"] > 0
+                                    and held["worst"] <= 1.0)
+    checks[f"{name}_control_misses"] = held["control_shifted_worst"] > 1.0
+    return held
+
+
+def fleet_fixture(root):
+    """SSD300 as ``od_serve`` builds it (300 px, 21 classes, 100
+    detections, bf16 trunk on the card), saved with
+    ``InferenceModel.save``; FLEET["requests"] seeded uint8 images and
+    FLEET["http_requests"] f32 ones; and the parent's own ``predict`` of
+    the saved model on the card over both, in chunks of the batch."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        PASCAL_CLASSES
+    from analytics_zoo_tpu_torch.orca.learn.prologue import rescale
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    det = _od_detector(OD["size"], PASCAL_CLASSES, "ssd300")
+    path = os.path.join(root, "ssd300.pt")
+    det.as_inference_model(max_detections=OD["max_det"]).save(None, path)
+    del det
+    f32 = _od_images(FLEET["http_requests"], OD["size"], seed=13)
+    u8 = (_od_images(FLEET["requests"], OD["size"], seed=12)
+          * 255).astype(np.uint8)
+    paths = {"uint8": os.path.join(root, "uint8.npy"),
+             "f32": os.path.join(root, "f32.npy")}
+    np.save(paths["uint8"], u8)
+    np.save(paths["f32"], f32)
+    ref = InferenceModel().load(path)
+    want = {"f32": _od_predict_chunks(ref, f32, OD["batch"])}
+    ref.set_prologue(rescale(1 / 255))
+    want["uint8"] = _od_predict_chunks(ref, u8, OD["batch"])
+    return {"path": path, "imgs": paths, "want": want,
+            "num_classes": len(PASCAL_CLASSES) + 1}
+
+
+def od_fleet_phase(card, root, fx):
+    """SSD300 served by ``ServingFleet`` worker processes over one
+    ``MiniRedisServer`` stream (``claim_idle_ms`` 800), with M = 1, 2 and
+    4 workers on the one card, ``autoscale=False``, batch 64; each worker
+    loads the saved model through ``_fleet_model`` (uint8 requests, the
+    prologue on the card). A client process sends a warm-up of 64
+    requests a worker, then FLEET["requests"] as one burst, and fetches
+    every answer; it starts with the fleet and begins once the workers
+    are live. Per M: records/s, p50/p99 latency, spawn to ``wait_live``,
+    each worker's heartbeat stats and engine stages, the parent's CPU
+    seconds (the broker's thread and the supervisor) and the client's,
+    and the client's wall time from the go to its exit. Every answer is held against the parent's ``predict`` of
+    the saved model (``_od_hold``, TOL_OD_SERVED_*), with the answers
+    shifted by one image as the control; every worker pid must hold
+    memory on the card. Returns the workers' own flash-kernel launch
+    counts, summed over every leg."""
+    from analytics_zoo_tpu_torch.serving import MiniRedisServer
+    legs, checks, held = {}, {}, {}
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    srv = MiniRedisServer(port=0).start()
+    try:
+        for m in FLEET["workers"]:
+            name = f"m{m}"
+            spec = _fleet_spec(srv, f"odfleet{m}")
+            report = os.path.join(root, f"od_fleet_{m}")
+            before = _gpu_apps()
+            out = os.path.join(root, f"od_fleet_{m}.npz")
+            client, go = _start_client(
+                _fleet_client, spec, fx["imgs"]["uint8"], out,
+                FLEET["warm_per_worker"] * m, name)
+            try:
+                fleet, spawn_s = _start_fleet(fx["path"], spec, m, True,
+                                              report)
+            except BaseException:
+                client.kill()
+                raise
+            try:
+                pids = [p.pid for p in fleet._procs.values()]
+                cpu0, t0 = time.process_time(), time.perf_counter()
+                go.set()
+                _join_client(client)
+                parent_cpu_s = time.process_time() - cpu0
+                client_wall_s = time.perf_counter() - t0
+                apps = _gpu_apps()
+                heartbeats = fleet.metrics()["per_worker"]
+            finally:
+                snap = fleet.stop(timeout_s=90)
+            after = _gpu_apps()
+            reports, metrics = _worker_reports(report)
+            per, total = _worker_launches(report)
+            for k in FLASH_KERNELS:
+                launches[k] += total[k]
+            res = np.load(out)
+            lat = res["latency_s"] * 1e3
+            legs[name] = {
+                "workers": m, "requests": FLEET["requests"],
+                "seconds": float(res["seconds"]),
+                "records_per_s": FLEET["requests"] / float(res["seconds"]),
+                "request_latency_ms": {
+                    "p50": float(np.percentile(lat, 50)),
+                    "p99": float(np.percentile(lat, 99)),
+                    "max": float(lat.max())},
+                "spawn_to_live_s": spawn_s,
+                "client_wall_s": client_wall_s,
+                "client_cpu_s": float(res["client_cpu_s"]),
+                "parent_cpu_s": parent_cpu_s,
+                "heartbeats": heartbeats,
+                "worker_stages": _stage_summary(metrics),
+                "records_sent": FLEET["requests"]
+                + FLEET["warm_per_worker"] * m,
+                "records_out_total": snap["records_out_total"],
+                "restarts": snap["restarts"],
+                "worker_pids": pids, "parent_pid": os.getpid(),
+                "nvidia_smi_apps_before": before, "nvidia_smi_apps": apps,
+                "nvidia_smi_apps_after": after,
+                "worker_reports": list(reports.values()),
+                "worker_launches": per}
+            checks[f"{name}_every_worker_reported_launches"] = \
+                set(per) == set(pids)
+            checks[f"{name}_all_answers_ok"] = _od_answers_ok(
+                res["answers"], OD["max_det"], fx["num_classes"]) == 0
+            checks[f"{name}_no_restarts"] = snap["restarts"] == 0
+            checks.update(_on_card_checks(name, pids, reports, before,
+                                          apps, after))
+            held[name] = _held(res["answers"], fx["want"]["uint8"], name,
+                               checks)
+    finally:
+        srv.stop()
+    emit({"phase": "od_fleet",
+          "config": {"ssd300": OD, "fleet": FLEET,
+                     "broker": "MiniRedisServer (this process)"},
+          "legs": legs, "held_against_predict": held,
+          "limits": {"score": TOL_OD_SERVED_SCORE, "box": TOL_OD_SERVED_BOX},
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the SSD300 fleet failed its checks: {checks}")
+    return launches
+
+
+def _get(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def http_fleet_phase(card, root, fx):
+    """Two of the port's HTTP frontends in fleet mode (``worker_ttl_s``
+    2.0) in front of a 2-worker SSD300 fleet whose workers trace
+    (``ZOO_TRACE=1``, spans and final metrics to a ``trace_dir``). A
+    client process, started beside the fleet and let go once it is live,
+    sends FLEET["http_requests"] ``POST /predict`` with one f32 image as
+    JSON each, alternately to the two doors; the answers
+    are held as in ``od_fleet``. ``/readyz`` must be 200 with 2 live
+    workers, ``/metrics`` must carry the ``fleet`` section,
+    ``/metrics.prom`` must parse and hold ``zoo_fleet_workers_live`` and
+    ``zoo_serving_http_events_total``, every worker that served must
+    report its ``transfer`` section, and one request's trace id must run
+    from a frontend's ``serving.request`` to a worker's
+    ``serving.dispatch`` and ``serving.respond``. Returns the workers'
+    own flash-kernel launch counts (the frontends run in this process)."""
+    from analytics_zoo_tpu_torch.obs import trace
+    from analytics_zoo_tpu_torch.obs.export import parse_exposition
+    from analytics_zoo_tpu_torch.serving import MiniRedisServer
+    from analytics_zoo_tpu_torch.serving.http_frontend import create_app
+    checks = {}
+    srv = MiniRedisServer(port=0).start()
+    report = os.path.join(root, "http_fleet")
+    try:
+        spec = _fleet_spec(srv, "httpfleet")
+        before = _gpu_apps()
+        apps, fronts, fleet = [], [], None
+        try:
+            for _ in range(FLEET["frontends"]):
+                app = create_app(spec, timeout_s=300.0, worker_ttl_s=2.0)
+                fronts.append(app.start())
+                apps.append(app)
+            out = os.path.join(root, "http_fleet.npz")
+            client, go = _start_client(_http_client, fronts,
+                                       fx["imgs"]["f32"], out)
+            try:
+                fleet, spawn_s = _start_fleet(
+                    fx["path"], spec, 2, False, report,
+                    worker_env={"ZOO_TRACE": "1"})
+            except BaseException:
+                client.kill()
+                raise
+            with trace.tracing(capacity=65536):
+                t0 = time.perf_counter()
+                go.set()
+                _join_client(client)
+                seconds = time.perf_counter() - t0
+                req_traces = {s.trace_id for s in trace.spans()
+                              if s.name == "serving.request"}
+            ready_status, ready = _get(fronts[0], "/readyz")
+            metrics_status, metrics = _get(fronts[1], "/metrics")
+            prom_status, prom = _get(fronts[0], "/metrics.prom")
+            pids = [p.pid for p in fleet._procs.values()]
+            gpu = _gpu_apps()
+        finally:
+            for app in apps:
+                app.stop()
+            if fleet is not None:
+                snap = fleet.stop(timeout_s=90)
+    finally:
+        srv.stop()
+    after = _gpu_apps()
+    reports, worker_metrics = _worker_reports(report)
+    per, launches = _worker_launches(report)
+    ready, metrics = json.loads(ready), json.loads(metrics)
+    samples = parse_exposition(prom.decode())
+    chains = {}
+    for name in os.listdir(report):
+        if name.startswith("spans-"):
+            with open(os.path.join(report, name)) as f:
+                for line in f:
+                    s = json.loads(line)
+                    chains.setdefault(s["trace"], set()).add(s["name"])
+    chained = [t for t in req_traces
+               if {"serving.dispatch", "serving.respond"} <= chains.get(
+                   t, set())]
+    transfer = {wid: m.get("transfer") for wid, m in worker_metrics.items()}
+    served = {wid: m.get("records_out", 0)
+              for wid, m in worker_metrics.items()}
+    res = np.load(out)
+    checks.update({
+        "readyz_200_two_workers": ready_status == 200
+        and ready.get("workers_live") == 2,
+        "metrics_fleet_section": metrics_status == 200
+        and metrics.get("fleet", {}).get("workers_live") == 2
+        and metrics.get("compile") == {},
+        "prom_parses_with_fleet_and_http_series": prom_status == 200 and any(
+            k.startswith("zoo_fleet_workers_live") for k in samples) and any(
+            k.startswith("zoo_serving_http_events_total") for k in samples),
+        "every_serving_worker_reports_transfer": sum(served.values())
+        >= FLEET["http_requests"] and all(
+            (transfer[w] or {}).get("h2d_bytes", 0) > 0
+            for w, n in served.items() if n),
+        "trace_crosses_processes": bool(chained),
+        "all_answers_ok": _od_answers_ok(
+            res["answers"], OD["max_det"], fx["num_classes"]) == 0,
+        "no_restarts": snap["restarts"] == 0,
+        "every_worker_reported_launches": set(per) == set(pids)})
+    checks.update(_on_card_checks("http", pids, reports, before, gpu,
+                                  after))
+    held = _held(res["answers"], fx["want"]["f32"], "http", checks)
+    lat = res["latency_s"] * 1e3
+    emit({"phase": "http_fleet", "frontends": len(fronts), "workers": 2,
+          "requests": FLEET["http_requests"], "seconds": seconds,
+          "records_per_s": FLEET["http_requests"] / seconds,
+          "request_latency_ms": {"p50": float(np.percentile(lat, 50)),
+                                 "p99": float(np.percentile(lat, 99))},
+          "spawn_to_live_s": spawn_s, "readyz": ready,
+          "metrics_keys": sorted(metrics), "fleet": metrics.get("fleet"),
+          "worker_transfer": transfer, "worker_records_out": served,
+          "nvidia_smi_apps_before": before, "nvidia_smi_apps": gpu,
+          "nvidia_smi_apps_after": after, "worker_pids": pids,
+          "worker_stages": _stage_summary(worker_metrics),
+          "trace_ids_requested": len(req_traces),
+          "trace_ids_chained": len(chained), "worker_launches": per,
+          "held_against_predict": held, "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the HTTP fleet failed its checks: {checks}")
+    return launches
+
+
+def fleet_chaos_phase(card, root, fx):
+    """The JAX bench's chaos leg on SSD300: two workers on the card over
+    one stream (``claim_idle_ms`` 800), FLEET["requests"] uint8 requests
+    enqueued at once, worker ``w0`` SIGKILLed (``kill_worker``) once its
+    heartbeat shows it holding admitted requests. Every request must be
+    answered (``lost == 0``), the survivor must have reclaimed the dead
+    worker's claims (``reclaimed_total > 0``) and the supervisor must
+    have respawned it (``restarts >= 1``); the answers are held as in
+    ``od_fleet``. Returns the workers' own flash-kernel launch counts, the
+    victim's as of its last finished predict."""
+    from analytics_zoo_tpu_torch.serving import (InputQueue,
+                                                 MiniRedisServer,
+                                                 OutputQueue)
+    from analytics_zoo_tpu_torch.serving.codecs import decode_payload
+    checks = {}
+    imgs = np.load(fx["imgs"]["uint8"])
+    report = os.path.join(root, "chaos")
+    srv = MiniRedisServer(port=0).start()
+    try:
+        spec = _fleet_spec(srv, "chaos")
+        fleet, spawn_s = _start_fleet(fx["path"], spec, 2, True, report,
+                                      heartbeat_s=0.1, poll_s=0.05)
+        try:
+            iq, oq = InputQueue(spec), OutputQueue(spec)
+            uris = [iq.enqueue(f"chaos-{i}", t=imgs[i])
+                    for i in range(len(imgs))]
+            # the victim's heartbeat shows it holding admitted requests
+            deadline = time.time() + 300
+            while (fleet.metrics()["per_worker"].get("w0", {}).get(
+                    "inflight", 0) == 0 and time.time() < deadline):
+                time.sleep(0.02)
+            at_kill = fleet.metrics()
+            t_kill = time.perf_counter()
+            killed = fleet.kill_worker("w0")
+            answers, lost, errors = [], 0, 0
+            for uri in uris:
+                raw = oq.broker.get_result(uri, 600)
+                if raw is None:
+                    lost += 1
+                    continue
+                data, meta = decode_payload(raw)
+                if meta.get("error"):
+                    errors += 1
+                    continue
+                answers.append(data)
+            recover_s = time.perf_counter() - t_kill
+            deadline = time.time() + 300
+            while fleet.metrics()["restarts"] < 1 and time.time() < deadline:
+                time.sleep(0.1)
+            # the respawn is up once it has loaded its model and written
+            # its launch report (a heartbeat under the victim's id may be
+            # the victim's last)
+            deadline = time.time() + FLEET["live_timeout_s"]
+            while (len(_worker_launches(report)[0])
+                   < 2 + fleet.metrics()["restarts"]
+                   and time.time() < deadline):
+                time.sleep(0.1)
+            respawn_live = fleet.wait_live(2, FLEET["live_timeout_s"])
+        finally:
+            snap = fleet.stop(timeout_s=90)
+    finally:
+        srv.stop()
+    per, launches = _worker_launches(report)
+    checks.update({
+        "every_worker_reported_launches": len(per) == 2 + snap["restarts"],
+        "killed_a_worker": killed == "w0",
+        "killed_holding_requests": at_kill["per_worker"]["w0"][
+            "inflight"] > 0,
+        "lost_0": lost == 0, "errors_0": errors == 0,
+        "reclaimed": snap["reclaimed_total"] > 0,
+        "restarted": snap["restarts"] >= 1,
+        "respawned_worker_live": respawn_live})
+    held = None
+    if len(answers) == len(imgs):
+        held = _held(np.stack(answers), fx["want"]["uint8"], "chaos",
+                     checks)
+    else:
+        checks["chaos_every_answer"] = False
+    emit({"phase": "fleet_chaos", "requests": len(imgs), "killed": killed,
+          "served_before_kill": at_kill["records_out_total"],
+          "victim_inflight_at_kill": at_kill["per_worker"]["w0"]["inflight"],
+          "lost": lost,
+          "errors": errors, "seconds_kill_to_last_answer": recover_s,
+          "reclaimed_total": snap["reclaimed_total"],
+          "restarts": snap["restarts"], "spawn_to_live_s": spawn_s,
+          "worker_launches": per,
+          "held_against_predict": held, "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the fleet's chaos leg failed its checks: {checks}")
+    return launches
+
+
+def _open_loop_leg(broker, record, rate_rps, n_req, deadline_s, seed,
+                   n_fetchers=12):
+    """One open-loop leg (the JAX bench's ``_serving_scale_leg``): Poisson
+    arrivals at ``rate_rps``, an absolute deadline stamped at enqueue,
+    latency from enqueue to the engine's ``t_done``. Returns ok, shed and
+    lost counts, goodput and the admitted latency percentiles."""
+    import queue
+    import threading
+
+    from analytics_zoo_tpu_torch.serving.codecs import (decode_payload,
+                                                        encode_payload)
+    results, lock = {}, threading.Lock()
+    uri_q = queue.Queue()
+
+    def fetch_loop():
+        while True:
+            item = uri_q.get()
+            if item is None:
+                return
+            uri, t_enq, dl = item
+            raw = broker.get_result(uri, max(dl - time.time(), 0.0) + 5.0)
+            if raw is None:
+                rec = ("lost", None)
+            else:
+                _, meta = decode_payload(raw)
+                if meta.get("shed"):
+                    rec = ("shed", None)
+                elif meta.get("error"):
+                    rec = ("error", None)
+                else:
+                    rec = ("ok", float(meta.get("t_done", time.time()))
+                           - t_enq)
+            with lock:
+                results[uri] = rec
+
+    fetchers = [threading.Thread(target=fetch_loop, daemon=True)
+                for _ in range(n_fetchers)]
+    for t in fetchers:
+        t.start()
+    gaps = np.random.RandomState(seed).exponential(1.0 / rate_rps, n_req)
+    t0 = time.time()
+    next_t = t0
+    for i in range(n_req):
+        next_t += gaps[i]
+        delay = next_t - time.time()
+        if delay > 0:
+            time.sleep(delay)
+        t_enq = time.time()
+        uri = f"ol{seed}-{i}"
+        broker.enqueue(uri, encode_payload(
+            record, meta={"uri": uri, "deadline": t_enq + deadline_s}))
+        uri_q.put((uri, t_enq, t_enq + deadline_s))
+    for _ in fetchers:
+        uri_q.put(None)
+    for t in fetchers:
+        t.join(timeout=120)
+    wall = time.time() - t0
+    counts = {"ok": 0, "shed": 0, "error": 0, "lost": 0}
+    lats = []
+    for kind, lat in results.values():
+        counts[kind] += 1
+        if lat is not None:
+            lats.append(lat)
+    lat = np.asarray(lats or [0.0]) * 1e3
+    return {"requests": n_req, **counts,
+            "goodput_rps": counts["ok"] / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "wall_s": wall}
+
+
+def fleet_topology_phase(card, root):
+    """The JAX bench's fleet legs 1-3 on ``SleepModel`` (host-only: it
+    shows that the fleet, not the card, scales): ``batch_ms`` 100, batch
+    4, so a worker serves 40 records/s by construction. One worker at 1.5x
+    its capacity, two at 1.5x theirs: the two-worker goodput must reach
+    TOPOLOGY["scaleout_min"] (1.5) x the one-worker goodput (the JAX
+    smoke gate); its control, one worker at 10x, must miss it. Under 10x
+    overload on one worker the admitted p99 must stay within the deadline
+    + TOPOLOGY["p99_slack_ms"]; its control, the same worker at 10x with
+    a deadline nothing reaches, must miss it. Returns the workers' own
+    flash-kernel launch counts."""
+    from analytics_zoo_tpu_torch.serving import (MiniRedisServer,
+                                                 ServingFleet,
+                                                 sleep_model_factory)
+    from analytics_zoo_tpu_torch.serving.queue_api import make_broker
+    t = TOPOLOGY
+    cap1 = t["batch"] / (t["batch_ms"] / 1e3)
+    vec = np.arange(64, dtype=np.float32)
+    srv = MiniRedisServer(port=0).start()
+    legs, spawned = {}, {}
+
+    def run(stream, workers, legs_spec):
+        spec = _fleet_spec(srv, stream)
+        report = os.path.join(root, stream)
+        os.makedirs(report, exist_ok=True)
+        fleet = ServingFleet(
+            partial(_counted_factory, report,
+                    partial(sleep_model_factory, 2.0, t["batch_ms"])), spec,
+            workers=workers, autoscale=False, batch_size=t["batch"],
+            batch_timeout_ms=20.0, max_inflight=2 * t["batch"],
+            heartbeat_s=0.25, worker_ttl_s=2.0, drain_s=10.0).start()
+        broker = make_broker(spec)
+        try:
+            if not fleet.wait_live(workers, FLEET["live_timeout_s"]):
+                fail(f"topology fleet {stream} never went live")
+            for name, rate, dur, deadline, seed in legs_spec:
+                legs[name] = _open_loop_leg(
+                    broker, vec, rate, max(int(rate * dur), 2 * t["batch"]),
+                    deadline, seed)
+                legs[name]["workers"] = workers
+        finally:
+            snap = fleet.stop(timeout_s=30)
+            broker.close()
+        spawned[stream] = (workers + snap["restarts"],
+                           _worker_launches(report))
+
+    try:
+        run("topo1", 1, [
+            ("1w", 1.5 * cap1, t["dur_s"], t["deadline_s"], 201),
+            ("10x_1w", 10 * cap1, t["over_dur_s"], t["over_deadline_s"],
+             203),
+            ("10x_1w_no_shed", 10 * cap1, t["control_dur_s"], 600.0, 205)])
+        run("topo2", 2, [("2w", 3.0 * cap1, t["dur_s"], t["deadline_s"],
+                          202)])
+    finally:
+        srv.stop()
+    g1 = legs["1w"]["goodput_rps"]
+    bound_ms = t["over_deadline_s"] * 1e3 + t["p99_slack_ms"]
+    ratios = {"2w": legs["2w"]["goodput_rps"] / g1,
+              "control_10x_1w": legs["10x_1w"]["goodput_rps"] / g1}
+    checks = {
+        "scaleout_at_least_1.5x": ratios["2w"] >= t["scaleout_min"],
+        "control_one_worker_misses": ratios["control_10x_1w"]
+        < t["scaleout_min"],
+        "admitted_p99_bounded_10x": legs["10x_1w"]["p99_ms"] <= bound_ms,
+        "control_no_shed_p99_misses": legs["10x_1w_no_shed"]["p99_ms"]
+        > bound_ms,
+        "overload_shed": legs["10x_1w"]["shed"] > 0,
+        "none_lost": all(leg["lost"] == 0 for leg in legs.values()),
+        "every_worker_reported_launches": all(
+            len(per) == n for n, (per, _) in spawned.values())}
+    emit({"phase": "fleet_topology", "config": t,
+          "per_worker_capacity_rps": cap1, "legs": legs,
+          "goodput_ratios": ratios, "p99_bound_ms": bound_ms,
+          "worker_launches": {k: per for k, (_, (per, _)) in
+                              spawned.items()},
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the fleet topology failed its checks: {checks}")
+    return {k: sum(total[k] for _, (_, total) in spawned.values())
+            for k in FLASH_KERNELS}
+
+
+# Runs ``python -m <module> <args>`` (``runpy`` as ``-m`` does) and, at
+# exit, writes the process's flash-kernel launch counts to a file:
+#   python -c _LAUNCH_PROBE <counts.json> <module> <args...>
+_LAUNCH_PROBE = """\
+import atexit, json, runpy, sys
+out, module = sys.argv.pop(1), sys.argv.pop(1)
+from analytics_zoo_tpu_torch.ops import attention as at
+
+
+def write():
+    with open(out, "w") as f:
+        json.dump({fn.__name__: fn.launches for fn in
+                   (at.flash_fwd, at.flash_bwd_dq, at.flash_bwd_dkv)}, f)
+
+
+atexit.register(write)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def obs_export_phase(card, root):
+    """``python -m analytics_zoo_tpu_torch.obs perfetto --out <f>
+    --demo-steps 8`` on the card (the demo fit resolves the card), run
+    through ``_LAUNCH_PROBE`` so the process reports its own kernel
+    launches: the file must be ``trace_event`` JSON with one step-indexed
+    ``engine.dispatch`` span per step under the ``fit`` and ``epoch``
+    spans. Returns the CLI process's flash-kernel launch counts."""
+    out = os.path.join(root, "demo_trace.json")
+    counts = os.path.join(root, "obs_launches.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_PROBE, counts,
+         "analytics_zoo_tpu_torch.obs", "perfetto",
+         "--out", out, "--demo-steps", str(OBS_DEMO_STEPS)],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"obs perfetto exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(counts) as f:
+        launches = json.load(f)
+    with open(out, encoding="utf-8") as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    dispatch = sorted(e["args"]["step"] for e in spans
+                      if e["name"] == "engine.dispatch")
+    named = {e["tid"] for e in events
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    checks = {
+        "exit_0": True,
+        "phases_valid": all(e["ph"] in ("X", "M", "C") for e in events),
+        "spans_well_formed": all(
+            e["ts"] >= 0 and e["dur"] >= 0 and e["args"]["trace"]
+            for e in spans),
+        "dispatch_per_step": dispatch == list(range(OBS_DEMO_STEPS)),
+        "fit_and_epoch": {"fit", "epoch"} <= {e["name"] for e in spans},
+        "tracks_named": {e["tid"] for e in spans} <= named}
+    emit({"phase": "obs_export", "seconds": seconds, "events": len(events),
+          "span_names": sorted({e["name"] for e in spans}),
+          "stdout": proc.stdout.strip()[-200:], "cli_launches": launches,
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the Perfetto export failed its checks: {checks}")
+    return launches
+
+
+def inference_ride_alongs_phase(card):
+    """``InferenceModel``'s slice-12 methods on the card: ``load_torch`` of
+    a user's torch MLP served through ``ClusterServing`` answers as the
+    module itself (f32, TF32 off, within TOL_LOAD_TORCH; the answers
+    shifted by one row must miss); ``distributed_predict`` over 4-partition
+    XShards equals ``predict`` of each partition bit for bit; and
+    ``transfer_stats()`` counts exactly the bytes of the padded batches
+    ``predict`` sent."""
+    from analytics_zoo_tpu_torch.orca.data import XShards
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        _bucket
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 InMemoryBroker, InputQueue,
+                                                 OutputQueue)
+    torch.manual_seed(0)
+    module = torch.nn.Sequential(
+        torch.nn.Linear(RIDE["features"], RIDE["hidden"]), torch.nn.ReLU(),
+        torch.nn.Linear(RIDE["hidden"], RIDE["classes"]))
+    model = InferenceModel().load_torch(module)
+    x = np.random.RandomState(14).randn(
+        RIDE["rows"], RIDE["features"]).astype(np.float32)
+    with torch.inference_mode():
+        own = module(torch.from_numpy(x).cuda()).cpu().numpy()
+    broker = InMemoryBroker()
+    serving = ClusterServing(model, queue=broker, batch_size=64).start(
+        example=x[:1])
+    try:
+        iq, oq = InputQueue(broker), OutputQueue(broker)
+        uris = [iq.enqueue(f"ride-{i}", t=x[i]) for i in range(len(x))]
+        res = oq.dequeue(uris, timeout_s=120)
+        transfer_section = serving.metrics().get("transfer")
+    finally:
+        serving.stop()
+    served = np.stack([res[u] for u in uris])
+    scale = float(np.abs(own).max())
+    err = float(np.abs(served - own).max()) / scale
+    control = float(np.abs(np.roll(served, 1, 0) - own).max()) / scale
+    shards = XShards.partition({"x": x}, num_shards=4)
+    parts = model.distributed_predict(shards).collect()
+    dist_equal = len(parts) == 4 and all(
+        np.array_equal(p["prediction"], model.predict(s["x"]))
+        for p, s in zip(parts, shards.collect()))
+    before = model.transfer_stats()["h2d_bytes"]
+    sizes = (1, 5, 64, 100)
+    for n in sizes:
+        model.predict(x[:n])
+    sent = model.transfer_stats()["h2d_bytes"] - before
+    expect = sum(_bucket(n, model.buckets) for n in sizes) * x[0].nbytes
+    checks = {
+        "served_on_card": model.device.type == "cuda" and _on_card(module),
+        "load_torch_served_as_module": err <= TOL_LOAD_TORCH,
+        "load_torch_control_misses": control > TOL_LOAD_TORCH,
+        "distributed_predict_equals_predict": dist_equal,
+        "transfer_bytes_exact": sent == expect,
+        "serving_metrics_transfer": bool(transfer_section)
+        and transfer_section.get("h2d_bytes", 0) > 0}
+    emit({"phase": "inference_ride_alongs", "config": RIDE,
+          "load_torch_rel_err": err, "control_shifted_rel_err": control,
+          "limit": TOL_LOAD_TORCH, "transfer_bytes": sent,
+          "transfer_bytes_expected": expect, "transfer": transfer_section,
+          "checks": checks, "card": card})
+    if not all(checks.values()):
+        fail(f"the InferenceModel ride-alongs failed their checks: {checks}")
+
+
 def _span_ms(run, calls):
     """CUDA-event time of ``run()`` per one of the ``calls`` it makes."""
     start = torch.cuda.Event(enable_timing=True)
@@ -4448,7 +5422,7 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     way, in the same rounds as SDPA's backward
     (``covered_pair_profiled_ms``), so the pair and its library call are
     compared by one method. ``slice_launches``: each kernel's launches on
-    the ASHA slice's paths (all 0)."""
+    the ASHA slice's and the serving tier's paths (all 0)."""
     from analytics_zoo_tpu_torch.ops import attention as at
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -4593,6 +5567,39 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     emit({"kernels": out})
 
 
+def serving_tier_paths(card):
+    """The serving tier's six phases, each driven with the flash kernels'
+    counts at 0. A path's count is this process's plus those its other
+    processes report of their own (fleet workers, the obs CLI); none may
+    launch a flash kernel (their SSD300 holds no attention). Returns the
+    counts by path."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    kernels = [getattr(at, name) for name in FLASH_KERNELS]
+    root = tempfile.mkdtemp(prefix="fleet-")
+    try:
+        fx = fleet_fixture(root)
+        launches = {}
+        for name, run in (
+                ("od_fleet", lambda: od_fleet_phase(card, root, fx)),
+                ("http_fleet", lambda: http_fleet_phase(card, root, fx)),
+                ("fleet_chaos", lambda: fleet_chaos_phase(card, root, fx)),
+                ("fleet_topology", lambda: fleet_topology_phase(card, root)),
+                ("obs_export", lambda: obs_export_phase(card, root)),
+                ("inference_ride_alongs",
+                 lambda: inference_ride_alongs_phase(card))):
+            for fn in kernels:
+                fn.launches = 0
+            elsewhere = run() or {}
+            launches[name] = {
+                fn.__name__: fn.launches + elsewhere.get(fn.__name__, 0)
+                for fn in kernels}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(n for counts in launches.values() for n in counts.values()):
+        fail(f"a flash kernel launched on a serving-tier path: {launches}")
+    return launches
+
+
 def main():
     card = device_phase()
     import analytics_zoo_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -4691,9 +5698,10 @@ def main():
         od_hot_reload_phase(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    fleet_launches = serving_tier_paths(card)
     kernels_line(errs, bwd_errs, serve_launches, train_launches,
                  fraud_launches, autots_launches, od_launches,
-                 slice_launches)
+                 {**slice_launches, **fleet_launches})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -364,11 +364,10 @@ def test_keep_model_states_and_errors():
                                                            False]
 
 
-def test_asha_not_ported():
+def test_engine_runs_asha():
     """The engine and ``AutoEstimator.fit`` run ``scheduler="asha"`` to
-    completion, and only an unknown scheduler raises. (The name is kept
-    from when this test held the raise of the unported scheduler; the
-    runtime's own suite is tests/test_torch_scheduler.py.)"""
+    completion, and only an unknown scheduler raises (the runtime's own
+    suite is tests/test_torch_scheduler.py)."""
     eng = TEngine(device="cpu")
     eng.compile(None, _Stub, {"s": thp.grid_search([2.0, 1.0, 3.0])},
                 epochs=3, scheduler="asha")

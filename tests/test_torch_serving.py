@@ -110,6 +110,76 @@ def test_cluster_serving_matches_jax_inference_model(orca_context):
     assert serving.metrics()["records_out"] == 21
 
 
+def _user_mlp():
+    torch.manual_seed(0)
+    return torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                               torch.nn.Linear(16, 4))
+
+
+def test_load_torch_matches_jax(orca_context):
+    """A user's torch module through both packages' ``load_torch``: the JAX
+    package converts it to flax, the port serves it as it is (f32, TF32
+    off)."""
+    from analytics_zoo_tpu.pipeline.inference import \
+        InferenceModel as JInferenceModel
+    x = np.random.RandomState(3).randn(21, 8).astype(np.float32)
+    ref = JInferenceModel().load_torch(_user_mlp()).predict(x)
+    module = _user_mlp()
+    model = InferenceModel(device="cpu").load_torch(module)
+    assert model.module is module
+    np.testing.assert_allclose(model.predict(x), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_distributed_predict_matches_jax(orca_context):
+    from analytics_zoo_tpu.orca.data import XShards as JXShards
+    from analytics_zoo_tpu.pipeline.inference import \
+        InferenceModel as JInferenceModel
+
+    from analytics_zoo_tpu_torch.orca.data import XShards
+    x = np.random.RandomState(4).randn(30, 8).astype(np.float32)
+    want = JInferenceModel().load_torch(_user_mlp()).distributed_predict(
+        JXShards.partition({"x": x}, num_shards=3)).collect()
+    model = InferenceModel(device="cpu").load_torch(_user_mlp())
+    shards = XShards.partition({"x": x}, num_shards=3)
+    got = model.distributed_predict(shards).collect()
+    assert len(got) == len(want) == 3
+    for g, w, part in zip(got, want, shards.collect()):
+        np.testing.assert_allclose(g["prediction"], w["prediction"],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(g["prediction"],
+                                      model.predict(part["x"]))
+
+
+def test_transfer_stats_keys_and_bytes_match_jax(orca_context):
+    """``transfer_stats()`` has the JAX snapshot's keys and counts the
+    bytes ``predict`` sent: the padded batch, as JAX's does; ClusterServing's
+    ``metrics()`` shows it as ``"transfer"``."""
+    from analytics_zoo_tpu.pipeline.inference import \
+        InferenceModel as JInferenceModel
+    x = np.random.RandomState(5).randn(16, 8).astype(np.float32)
+    jmodel = JInferenceModel().load_torch(_user_mlp())
+    jmodel.predict(x)
+    jmodel.predict(x[:5])
+    model = InferenceModel(device="cpu").load_torch(_user_mlp())
+    assert model.transfer_stats()["h2d_n"] == 0
+    model.predict(x)
+    model.predict(x[:5])                # padded to the bucket of 8
+    want, got = jmodel.transfer_stats(), model.transfer_stats()
+    assert set(got) == set(want)
+    assert got["h2d_n"] == want["h2d_n"] == 2
+    assert got["h2d_bytes"] == want["h2d_bytes"] == x.nbytes + 8 * 8 * 4
+    broker = InMemoryBroker()
+    serving = ClusterServing(model, queue=broker, batch_size=8).start()
+    try:
+        inq, outq = InputQueue(broker), OutputQueue(broker)
+        outq.dequeue([inq.enqueue(f"r{i}", t=x[i]) for i in range(4)],
+                     timeout_s=30)
+        transfer = serving.metrics()["transfer"]
+    finally:
+        serving.stop()
+    assert transfer["h2d_bytes"] > got["h2d_bytes"]
+
+
 # the modules each slice added, named so that a missing one fails here
 PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models", "models.common", "models.common.zoo_model",
@@ -154,13 +224,15 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models.image.objectdetection.loss",
     "models.image.objectdetection.evaluation",
     "models.image.objectdetection.detector",
-    "models.image.objectdetection.interop")]
+    "models.image.objectdetection.interop",
+    "obs.export", "obs.__main__", "serving.fleet", "serving.http_frontend",
+    "shm.cli")]
 
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports without JAX,
-    flax or the JAX package, and without pandas (which the port imports
-    only inside the functions that take DataFrames)."""
+    flax, optax, aiohttp or the JAX package, and without pandas (which the
+    port imports only inside the functions that take DataFrames)."""
     code = (
         "import sys, json, pkgutil, importlib\n"
         "import analytics_zoo_tpu_torch as pkg\n"
@@ -170,7 +242,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'analytics_zoo_tpu',\n"
-        "        'pandas')]\n"
+        "        'pandas', 'aiohttp')]\n"
         "print(json.dumps([len(names), bad, names]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
