@@ -67,6 +67,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Any, Callable, Dict, List, Optional
 
 from ...obs import trace as _trace
+from ...orca.learn import graphs as _graphs
 from .asha import AshaBracket
 from .events import EventLog, _jsonable
 from .lease import DeviceLeaseManager, current_device
@@ -530,6 +531,13 @@ class TrialRuntime:
 
     def _train_slice(self, trial, ctx: TrialContext, device,
                      start_done: int):
+        """One slice of a trial's training on its leased device; the CUDA
+        graphs its fits captured go when it returns, so concurrent trials
+        each hold only their own and a long study accumulates none."""
+        with _graphs.released_on_exit():
+            return self._fit_slice(trial, ctx, device, start_done)
+
+    def _fit_slice(self, trial, ctx: TrialContext, device, start_done: int):
         rec = self._rec[trial.trial_id]
         model = self.model_builder(trial.config, device)
         caps = _fit_eval_caps(model.fit_eval)

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from ...common.context import local_devices
+from ...orca.learn import graphs as _graphs
 from .. import hp as hp_dsl
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -218,9 +219,11 @@ class TPUSearchEngine(SearchEngine):
                         return trial
                     trial.device = str(lease.device)
                     model = self.model_builder(trial.config, lease.device)
-                    score, metrics, state = model.fit_eval(
-                        self.data, self.validation_data, epochs=self.epochs,
-                        metric=self.metric)
+                    # the trial's CUDA graphs go when its fit returns
+                    with _graphs.released_on_exit():
+                        score, metrics, state = model.fit_eval(
+                            self.data, self.validation_data,
+                            epochs=self.epochs, metric=self.metric)
                 trial.metric_value = float(score)
                 trial.metrics = metrics
                 trial.model_state = state

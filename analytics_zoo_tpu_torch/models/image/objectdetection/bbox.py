@@ -23,8 +23,19 @@ import torch
 DEFAULT_VARIANCES = (0.1, 0.1, 0.2, 0.2)
 
 
+_VARIANCES = {}
+
+
 def _variances(variances, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(variances, dtype=like.dtype, device=like.device)
+    """The variances as a tensor beside ``like``, made once per (values,
+    dtype, device): a host-to-device copy inside a step that a CUDA graph
+    captures would not be replayed."""
+    key = (tuple(variances), like.dtype, like.device)
+    v = _VARIANCES.get(key)
+    if v is None:
+        v = _VARIANCES[key] = torch.as_tensor(variances, dtype=like.dtype,
+                                              device=like.device)
+    return v
 
 
 def center_to_corner(boxes: torch.Tensor) -> torch.Tensor:

@@ -239,24 +239,28 @@ class InfeedPump:
         well as host bytes) over the first batch's size, capped at 8.
     workers : assembly thread count (``ZOO_INFEED_WORKERS``, default
         min(4, cpus)).
+    max_lanes : ceiling of the adaptive transfer-lane count
+        (``MAX_H2D_LANES``; a fused epoch's pump runs one lane).
     stats : shared :class:`PipelineStats`; a private one is created if
         omitted (exposed as ``pump.stats``).
 
     The transfer lanes start at ``ZOO_H2D_LANES`` (default 2); the pump
-    raises the count up to ``MAX_H2D_LANES`` when the consumer starves
-    while the H2D stage dominates assembly.
+    raises the count up to ``max_lanes`` when the consumer starves while
+    the H2D stage dominates assembly.
     """
 
     def __init__(self, batch_iter_factory: Callable[[], Iterator],
                  device_put: Callable, depth: int = 2,
                  workers: Optional[int] = None,
+                 max_lanes: int = MAX_H2D_LANES,
                  stats: Optional[PipelineStats] = None):
         self._factory = batch_iter_factory
         self._device_put = device_put
         self._depth = max(1, depth)
         self._max_depth: Optional[int] = None   # set at the first growth
         self._workers = workers if workers is not None else _default_workers()
-        self._lanes = default_h2d_lanes()
+        self._max_lanes = max(1, min(int(max_lanes), MAX_H2D_LANES))
+        self._lanes = min(default_h2d_lanes(), self._max_lanes)
         self.stats = stats if stats is not None else PipelineStats()
         self.stats.observe_lanes(self._lanes)
         self._trace_token = None    # captured per-epoch at __iter__
@@ -359,7 +363,7 @@ class InfeedPump:
         # before comparing (assemble stays summed: overestimating it only
         # makes lane growth more conservative)
         t = self.stats.stage_seconds()
-        if self._lanes < MAX_H2D_LANES and \
+        if self._lanes < self._max_lanes and \
                 t["h2d"] / max(self._lanes, 1) > t["assemble"]:
             self._lanes += 1
             self.stats.observe_lanes(self._lanes, grew=True)

@@ -22,6 +22,13 @@ still in flight, or the card receives a torn batch; no test on the CPU can
 show it. Each ring slot keeps the event of its last copy, and
 :meth:`StagingPool.acquire` waits on that event before it hands the slot
 out again.
+
+A fused group's superbatch (up to 256 MiB) would pin several GB in a ring
+sized in slots, so its ring is sized in bytes (:func:`fused_ring`: at
+most ``FUSED_STAGING_BYTES`` of superbatches, and never fewer than
+``FUSED_MIN_RING`` slots). The pump feeds a fused epoch with one assembly
+worker and one transfer lane, whose in-flight window (one superbatch
+assembling, one waiting for the lane, one copying) that minimum covers.
 """
 
 from __future__ import annotations
@@ -37,10 +44,22 @@ from ..resilience import faults as _faults
 
 __all__ = ["narrow_wire", "narrows_to", "wire_nbytes", "put_tree",
            "StagingPool", "StagingSlot", "default_h2d_lanes",
-           "MAX_H2D_LANES"]
+           "MAX_H2D_LANES", "FUSED_STAGING_BYTES", "fused_ring"]
 
 # ceiling for adaptive lane growth, as in the JAX package
 MAX_H2D_LANES = 8
+
+# pinned bytes the superbatch ring of a fused epoch may hold, and its
+# least slot count (the one-worker, one-lane pump's window plus one)
+FUSED_STAGING_BYTES = 1 << 30
+FUSED_MIN_RING = 4
+
+
+def fused_ring(group_nbytes: int) -> int:
+    """Slots per leaf for superbatches of ``group_nbytes`` (all leaves):
+    as many as fit ``FUSED_STAGING_BYTES``, at least ``FUSED_MIN_RING``."""
+    return max(FUSED_MIN_RING,
+               FUSED_STAGING_BYTES // max(int(group_nbytes), 1))
 
 _NARROW = {np.dtype(np.float64): np.float32,
            np.dtype(np.int64): np.int32,
@@ -118,13 +137,17 @@ class StagingPool:
         self._lock = threading.Lock()
         self._rings = {}        # key -> ([slots], cursor)
 
-    def acquire(self, shape, dtype, tag=None) -> StagingSlot:
+    def acquire(self, shape, dtype, tag=None,
+                ring: Optional[int] = None) -> StagingSlot:
         """``tag`` partitions the rings (one per batch leaf), so two leaves
-        of one signature do not draw one ring down twice as fast."""
+        of one signature do not draw one ring down twice as fast. ``ring``
+        caps this key's ring below the pool's (a superbatch's
+        :func:`fused_ring`)."""
         key = (tag, tuple(shape), np.dtype(dtype).str)
+        size = self.ring if ring is None else max(2, min(self.ring, ring))
         with self._lock:
             slots, cur = self._rings.get(key, ([], 0))
-            if len(slots) < self.ring:
+            if len(slots) < size:
                 slot = StagingSlot(shape, dtype)
                 slots.append(slot)
                 self._rings[key] = (slots, 0)

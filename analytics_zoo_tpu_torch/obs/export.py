@@ -230,7 +230,8 @@ def _demo_fit(steps: int, device=None):
     batch = 32
     with tempfile.TemporaryDirectory() as d:
         est = TPUEstimator(M(), loss="mse", optimizer="adam", model_dir=d,
-                           seed=0, device=device)
+                           seed=0, config={"steps_per_dispatch": 1},
+                           device=device)
         est.fit({"x": rng.rand(batch * steps, 8).astype(np.float32),
                  "y": rng.rand(batch * steps).astype(np.float32)},
                 epochs=1, batch_size=batch,

@@ -39,22 +39,56 @@ of every train, eval and predict step, on the device. ``train_batch``
 records each step's host dispatch time as the ``step`` stage of
 ``pipeline_stats`` when the estimator set one.
 
-Not ported: scan fusion (``fuse`` is always 1), and the comms, sharding,
-fsdp and compile-cache planes.
+**Fused groups** (the JAX engine's ``lax.scan`` of k steps):
+``train_batch_group`` and ``eval_batch_group`` take a stacked superbatch
+(leaves ``(k, batch, ...)``) and run its k steps, each exactly as
+``train_batch``/``eval_batch`` would, returning the per-step losses
+``(k,)``. On the CPU the group is k eager steps in a loop. On the card it
+is one replay of a CUDA graph (``graphs.py``), captured once per
+signature (k, the leaves' shapes and dtypes, the clip settings; a new
+optimizer from ``build`` drops every graph): the first group of a signature runs its k steps eagerly on
+the engine's side stream (the warm-up: optimizer state, kernel builds and
+library handles come into being, and these are the group's real steps),
+then the graph is captured on that stream, and every later group copies
+its superbatch into the graph's static inputs and replays. What makes the
+graph replay what the eager steps compute:
+
+* the lr is a device tensor per param group (the card's optimizers are
+  built capturable, ``optimizers_impl.py``), written from ``lr_at`` before
+  an eager step and copied from a per-replay ``(k,)`` table inside the
+  graph;
+* step slot i of a graph draws from its own generator, registered with
+  the graph and seeded before each replay as the eager step would seed
+  the engine's generator;
+* the optimizer state and parameters keep their storage: ``set_state``
+  and ``restore_snapshot`` replace the optimizer's state tensors and so
+  drop the captured graphs.
+
+:meth:`TrainEngine.graph_gate` says, before anything is captured, why a
+module cannot be (an optimizer built without ``capturable``, a schedule
+over a float lr, a random layer on a torch without graph-safe
+generators): the estimator then runs it unfused and logs the reason, and
+a group handed to the engine on the card anyway raises before it
+captures.
+
+Not ported: the comms, sharding, fsdp and compile-cache planes.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from ...obs import trace as _trace
 from ...pipeline.api.keras.layers.self_attention import DrawsRandom
+from ...resilience import faults as _faults
+from . import graphs
 from .metrics import Metric
 from .utils import Batch
 
@@ -95,9 +129,12 @@ class TrainEngine:
         self.opt: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self._gen = torch.Generator(device=device)
+        self._random_layers: List[nn.Module] = []
         self._clip_norm: Optional[float] = None
         self._clip_min: Optional[float] = None
         self._clip_max: Optional[float] = None
+        self._graphs: Dict[Any, graphs.StepGraph] = {}
+        self._graph_stream = None       # side stream: warm-up and capture
 
     # --- gradient clipping --------------------------------------------------
     _KEEP = object()                    # "leave this clip setting as-is"
@@ -158,11 +195,56 @@ class TrainEngine:
             raise RuntimeError("the module has parameters whose width comes "
                                "from the first input; fit, or load a "
                                "state, before building the optimizer")
+        # graphs captured over an earlier optimizer (its state and lr
+        # tensors) must never replay over this one
+        self.release_graphs()
         self.opt = self.make_optimizer(list(self.module.parameters()))
-        for m in self.module.modules():
-            if isinstance(m, DrawsRandom):
-                m.generator = self._gen
+        self._random_layers = [m for m in self.module.modules()
+                               if isinstance(m, DrawsRandom)]
+        self._set_generator(self._gen)
         self.step = 0
+
+    def _set_generator(self, gen: torch.Generator):
+        for m in self._random_layers:
+            m.generator = gen
+
+    def _step_seed(self, step: int) -> int:
+        return (self.seed * _SEED_MIX + step) & 0x7FFFFFFFFFFFFFFF
+
+    def _lr_tensors(self) -> Optional[List[torch.Tensor]]:
+        """The param groups' lr tensors (the card's optimizers), or None
+        when some group holds a float lr."""
+        lrs = [g["lr"] for g in self.opt.param_groups]
+        return lrs if all(isinstance(v, torch.Tensor) for v in lrs) else None
+
+    def _set_lr(self, lr: float):
+        """Every param group's lr for the next update: written into the
+        group's lr tensor (an eager fill, no host sync), or set as a
+        float."""
+        for group in self.opt.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def graph_gate(self) -> Optional[str]:
+        """Why this engine's fused groups cannot be CUDA graphs on its
+        device, or None when they can (always None off the card, where a
+        group is k eager steps). Decided from the module and optimizer
+        alone, before anything is captured."""
+        if self.device.type != "cuda":
+            return None
+        self.build()
+        for group in self.opt.param_groups:
+            if group.get("capturable") is False:
+                return (f"{type(self.opt).__name__} was built without "
+                        "capturable=True")
+        if self.lr_at is not None and self._lr_tensors() is None:
+            return "an lr schedule over a float lr"
+        if self._random_layers and not graphs.generators_supported():
+            return ("a layer draws random numbers and this torch cannot "
+                    "register a generator with a CUDA graph")
+        return None
 
     # --- model application --------------------------------------------------
     def _pre(self, x, y):
@@ -190,9 +272,9 @@ class TrainEngine:
         return (per_ex * w).sum() / w.sum().clamp_min(1e-8)
 
     # --- steps --------------------------------------------------------------
-    def _train_step(self, x, y, w) -> torch.Tensor:
-        self._gen.manual_seed((self.seed * _SEED_MIX + self.step)
-                              & 0x7FFFFFFFFFFFFFFF)
+    def _update(self, x, y, w) -> torch.Tensor:
+        """Forward, backward, clip and the optimizer's update: one train
+        step without its seeding and lr (the part a graph captures)."""
         self.opt.zero_grad(set_to_none=True)
         x, y = self._pre(x, y)
         preds = self._apply(x, True)
@@ -201,12 +283,26 @@ class TrainEngine:
         grads = [p.grad for p in self.module.parameters()
                  if p.grad is not None]
         self._clip_grads(grads)
-        if self.lr_at is not None:
-            lr = self.lr_at(self.step)
-            for group in self.opt.param_groups:
-                group["lr"] = lr
         self.opt.step()
         return loss.detach()
+
+    def _train_step(self, x, y, w) -> torch.Tensor:
+        self._gen.manual_seed(self._step_seed(self.step))
+        if self.lr_at is not None:
+            self._set_lr(self.lr_at(self.step))
+        return self._update(x, y, w)
+
+    def _train_multi_step(self, xs, ys) -> torch.Tensor:
+        """k eager train steps over a stacked superbatch (leaves ``(k,
+        batch, ...)``, every row real), each exactly ``_train_step``;
+        counts ``step`` as it goes. Returns the losses ``(k,)``."""
+        losses = []
+        for i in range(xs[0].shape[0]):
+            losses.append(self._train_step(
+                tuple(a[i] for a in xs),
+                tuple(a[i] for a in ys) if ys is not None else None, None))
+            self.step += 1
+        return torch.stack(losses)
 
     def _eval_step(self, metric_states, x, y, w):
         with torch.no_grad():
@@ -225,9 +321,137 @@ class TrainEngine:
             count = w.sum()
         return new_states, loss * count, count
 
+    def _eval_multi_step(self, metric_states, xs, ys):
+        """k eval steps over a stacked superbatch, chaining the metric
+        states; returns the states and the per-step loss sums and counts
+        ``(k,)`` (summed by the caller with the unfused steps', in step
+        order)."""
+        losses, counts = [], []
+        for i in range(xs[0].shape[0]):
+            metric_states, loss, n = self._eval_step(
+                metric_states, tuple(a[i] for a in xs),
+                tuple(a[i] for a in ys) if ys is not None else None, None)
+            losses.append(loss)
+            counts.append(n)
+        return metric_states, torch.stack(losses), torch.stack(counts)
+
     def _predict_step(self, x):
         with torch.no_grad():
             return self._apply(self._pre_x(x), False)
+
+    # --- CUDA graphs of fused groups ---------------------------------------
+    def _signature(self, kind: str, batch: Batch, extra=()):
+        return (kind, batch.fused, tuple(
+            (tuple(t.shape), t.dtype) for t in batch.leaves()),
+            self._clip_norm, self._clip_min, self._clip_max) + tuple(extra)
+
+    def _side_stream(self):
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        self._graph_stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._graph_stream
+
+    def _refuse_capture(self):
+        reason = self.graph_gate()
+        if reason is not None:
+            raise RuntimeError(f"a fused group cannot be captured: {reason}")
+
+    def _graph_train(self, b: Batch) -> torch.Tensor:
+        """One fused train group on the card: the first of its signature
+        runs eagerly on the side stream and is then captured; later ones
+        replay."""
+        k = b.fused
+        key = self._signature("train", b)
+        g = self._graphs.get(key)
+        step0 = self.step
+        lrs = ([self.lr_at(step0 + i) for i in range(k)]
+               if self.lr_at is not None else None)
+        if g is None:
+            self._refuse_capture()
+            stream = self._side_stream()
+            with torch.cuda.stream(stream):
+                for t in b.leaves():
+                    t.record_stream(stream)
+                losses = self._train_multi_step(b.x, b.y)
+            self._graphs[key] = self._capture_train(b, k, stream,
+                                                    lrs is not None)
+            return losses
+        for i, gen in enumerate(g.gens):
+            gen.manual_seed(self._step_seed(step0 + i))
+        inputs = list(b.x) + list(b.y or ())
+        if lrs is not None:
+            inputs.append(torch.tensor(lrs, dtype=torch.float32)
+                          .pin_memory())
+        losses = g.replay(inputs).clone()
+        self.step = step0 + k
+        return losses
+
+    def _capture_train(self, b: Batch, k: int, stream, scheduled: bool):
+        nx = len(b.x)
+        ny = len(b.y or ())
+        static = [torch.empty_like(t) for t in list(b.x) + list(b.y or ())]
+        lr_ts = self._lr_tensors() if scheduled else None
+        if scheduled:
+            static.append(torch.empty(k, dtype=torch.float32,
+                                      device=self.device))
+        gens = ([torch.Generator(device=self.device) for _ in range(k)]
+                if self._random_layers else [])
+
+        def body(*ins):
+            xs, ys = ins[:nx], (ins[nx:nx + ny] if b.y is not None
+                                else None)
+            losses = []
+            for i in range(k):
+                if gens:
+                    self._set_generator(gens[i])
+                if lr_ts is not None:
+                    for t in lr_ts:
+                        t.copy_(ins[-1][i])
+                losses.append(self._update(
+                    tuple(a[i] for a in xs),
+                    tuple(a[i] for a in ys) if ys is not None else None,
+                    None))
+            return torch.stack(losses)
+
+        try:
+            return graphs.capture("train", body, static, stream, gens,
+                                  release=self.release_graphs)
+        finally:
+            self._set_generator(self._gen)
+
+    def _graph_eval(self, metric_states, b: Batch):
+        key = self._signature("eval", b, extra=tuple(sorted(metric_states)))
+        g = self._graphs.get(key)
+        state_leaves, spec = pytree.tree_flatten(metric_states)
+        if g is None:
+            self._refuse_capture()
+            stream = self._side_stream()
+            with torch.cuda.stream(stream):
+                for t in b.leaves():
+                    t.record_stream(stream)
+                out = self._eval_multi_step(metric_states, b.x, b.y)
+            nx, ny = len(b.x), len(b.y or ())
+            static = [torch.empty_like(t) for t in
+                      list(b.x) + list(b.y or ()) + state_leaves]
+
+            def body(*ins):
+                states = pytree.tree_unflatten(list(ins[nx + ny:]), spec)
+                states, losses, counts = self._eval_multi_step(
+                    states, ins[:nx],
+                    ins[nx:nx + ny] if b.y is not None else None)
+                return pytree.tree_flatten(states)[0] + [losses, counts]
+
+            self._graphs[key] = graphs.capture(
+                "eval", body, static, stream, release=self.release_graphs)
+            return out
+        outs = [t.clone() for t in g.replay(
+            list(b.x) + list(b.y or ()) + state_leaves)]
+        return pytree.tree_unflatten(outs[:-2], spec), outs[-2], outs[-1]
+
+    def release_graphs(self):
+        """Drop the captured graphs and their memory pools (an AutoML
+        trial's when its fit returns: ``graphs.released_on_exit``)."""
+        self._graphs.clear()
 
     # --- public API ---------------------------------------------------------
     def train_batch(self, batch: Batch) -> torch.Tensor:
@@ -237,12 +461,32 @@ class TrainEngine:
         # obs span (one flag check disarmed): the step-indexed segment the
         # Perfetto timeline renders
         with _trace.span("engine.dispatch", step=self.step):
+            _faults.fire("engine.dispatch")
             b = batch.to(self.device)
             loss = self._train_step(b.x, b.y, b.w)
         self.step += 1
         if self.pipeline_stats is not None:
             self.pipeline_stats.add("step", time.perf_counter() - t0)
         return loss
+
+    def train_batch_group(self, batch: Batch) -> torch.Tensor:
+        """Run the k fused train steps of a stacked superbatch (every x/y
+        leaf ``(k, batch, ...)``, no padding): one graph replay on the card
+        (an error when ``graph_gate`` refuses), k eager steps on the CPU.
+        Returns the per-step losses ``(k,)``."""
+        k = int(batch.fused)
+        t0 = time.perf_counter()
+        with _trace.span("engine.dispatch", step=self.step, fused=k):
+            _faults.fire("engine.dispatch")
+            b = batch.to(self.device)
+            if self.device.type == "cuda":
+                losses = self._graph_train(b)
+            else:
+                losses = self._train_multi_step(b.x, b.y)
+        if self.pipeline_stats is not None:
+            self.pipeline_stats.add("step", time.perf_counter() - t0,
+                                    count=k)
+        return losses
 
     def init_metric_states(self):
         return {name: m.init_state(self.device)
@@ -251,6 +495,22 @@ class TrainEngine:
     def eval_batch(self, metric_states, batch: Batch):
         b = batch.to(self.device)
         return self._eval_step(metric_states, b.x, b.y, b.w)
+
+    def eval_batch_group(self, metric_states, batch: Batch):
+        """The k fused eval steps of a stacked superbatch: one graph replay
+        on the card (an error when ``graph_gate`` refuses), k eager steps on
+        the CPU. Returns (states, per-step
+        loss sums ``(k,)``, per-step counts ``(k,)``)."""
+        t0 = time.perf_counter()
+        b = batch.to(self.device)
+        if self.device.type == "cuda":
+            out = self._graph_eval(metric_states, b)
+        else:
+            out = self._eval_multi_step(metric_states, b.x, b.y)
+        if self.pipeline_stats is not None:
+            self.pipeline_stats.add("step", time.perf_counter() - t0,
+                                    count=int(batch.fused))
+        return out
 
     def finalize_metrics(self, metric_states, loss_sum, count
                          ) -> Dict[str, float]:
@@ -267,7 +527,8 @@ class TrainEngine:
     # --- state access -------------------------------------------------------
     def get_state(self) -> Dict[str, Any]:
         """Module state (parameters and buffers), optimizer state, step and
-        the parameters' names in the optimizer's order, as CPU tensors."""
+        the parameters' names in the optimizer's order, as CPU tensors. A
+        param group's lr tensor is written as its float."""
         def cpu(obj):
             if isinstance(obj, torch.Tensor):
                 return obj.detach().cpu().clone()
@@ -277,9 +538,14 @@ class TrainEngine:
                 return type(obj)(cpu(v) for v in obj)
             return obj
 
+        opt_state = None
+        if self.opt is not None:
+            opt_state = cpu(self.opt.state_dict())
+            for group in opt_state["param_groups"]:
+                if isinstance(group.get("lr"), torch.Tensor):
+                    group["lr"] = float(group["lr"])
         return {"params": cpu(self.module.state_dict()),
-                "opt_state": (cpu(self.opt.state_dict())
-                              if self.opt is not None else None),
+                "opt_state": opt_state,
                 "step": self.step,
                 "param_names": [n for n, _ in
                                 self.module.named_parameters()]}
@@ -294,8 +560,51 @@ class TrainEngine:
         self.module.load_state_dict(state["params"], strict=True)
         if state.get("opt_state") is not None:
             self.build()
-            self.opt.load_state_dict(_cloned(state["opt_state"]))
+            self._load_opt_state(_cloned(state["opt_state"]))
         self.step = int(state["step"])
+
+    def _load_opt_state(self, opt_state: Dict[str, Any]):
+        """Load an optimizer state dict into the built optimizer, keeping
+        how this device built it: the groups' ``capturable``/``fused``/
+        ``foreach`` flags stay this optimizer's (so state steps land where
+        it keeps them), and an lr tensor stays the same tensor, given the
+        state's lr. The state's tensors replace the optimizer's, so the
+        captured graphs go."""
+        lr_ts = [g["lr"] for g in self.opt.param_groups]
+        for mine, theirs in zip(self.opt.param_groups,
+                                opt_state["param_groups"]):
+            for flag in ("capturable", "fused", "foreach", "differentiable"):
+                if flag in mine:
+                    theirs[flag] = mine[flag]
+        self.opt.load_state_dict(opt_state)
+        for group, t in zip(self.opt.param_groups, lr_ts):
+            if isinstance(t, torch.Tensor):
+                t.fill_(float(group["lr"]))
+                group["lr"] = t
+        self.release_graphs()
+
+    def snapshot(self):
+        """A copy of the whole training state on its device (parameters,
+        buffers, optimizer state, step, and torch's default generators),
+        so a caller can run real steps (the fuse probe) and roll them back
+        exactly. Costs one transient copy of the parameters and optimizer
+        state."""
+        rng = [torch.random.get_rng_state()]
+        if self.device.type == "cuda":
+            rng.append(torch.cuda.get_rng_state(self.device))
+        return (_cloned(self.module.state_dict()),
+                _cloned(self.opt.state_dict()) if self.opt is not None
+                else None, self.step, rng)
+
+    def restore_snapshot(self, snap):
+        params, opt_state, step, rng = snap
+        self.module.load_state_dict(params, strict=True)
+        if opt_state is not None:
+            self._load_opt_state(opt_state)
+        self.step = step
+        torch.random.set_rng_state(rng[0])
+        if len(rng) > 1:
+            torch.cuda.set_rng_state(rng[1], self.device)
 
 
 def _cloned(obj):

@@ -33,8 +33,26 @@ Planes, as in the JAX estimator:
 
 ``fit``, ``evaluate`` and ``predict`` take the inputs of
 ``orca/learn/utils.data_to_iterator``: arrays, XShards with
-``feature_cols``/``label_cols`` and creator functions. Every step runs on
-its own (``fuse`` is always 1).
+``feature_cols``/``label_cols`` and creator functions.
+
+**Fused dispatch** (config ``steps_per_dispatch``: ``"auto"`` by default,
+an int pins k, 1 disables), as in the JAX estimator: ``fit`` and
+``evaluate`` run k steps per dispatch over stacked superbatches
+(``TrainEngine.train_batch_group``: one CUDA-graph replay on the card, k
+eager steps on the CPU), with the same trajectory as the per-step loop.
+``"auto"`` times real steps (rolled back: parameters, optimizer state,
+step, default generators and the iterator's shuffle counter end as if
+the probe never ran) and sizes k so a group runs about 0.25 s
+(``utils.auto_fuse_factor``); a step estimated at 10 ms or more of
+compute (``utils.estimate_step_compute_s``, on the card) stays unfused.
+k is capped by the superbatch bytes (``utils.MAX_GROUP_BYTES``), the
+checkpoint trigger's ``fuse_cap()`` and the epoch length; the ragged tail
+runs as single padded steps; triggers, preemption and TensorBoard are
+observed at group boundaries. An iterator without ``supports_fused`` (an
+``ImageNetPipeline``), an explicit ``steps_per_epoch`` and a module the
+engine's ``graph_gate`` refuses on the card run unfused. The probed k is
+cached per input signature on the estimator; the JAX compile plane's
+persisted probe result (``cache.get_aux("fuse")``) waits for ROADMAP A12.
 
 **TensorBoard**: ``set_tensorboard(log_dir, app_name)`` writes each train
 step's loss as the scalar ``Loss`` (step: the iteration) under
@@ -91,17 +109,23 @@ class _StepTimer:
         return ev
 
     def start(self):
-        self.marks.append([self._mark(), None])
+        self.marks.append([self._mark(), None, 1])
 
-    def stop(self):
+    def stop(self, steps: int = 1):
+        """End the dispatch started last; it ran ``steps`` steps."""
         self.marks[-1][1] = self._mark()
+        self.marks[-1][2] = steps
 
     def read(self) -> List[float]:
-        if not self.cuda:
-            return [(b - a) * 1e3 for a, b in self.marks]
-        if self.marks:
+        """One time per step: a fused group's time is split evenly over
+        its steps."""
+        if self.cuda and self.marks:
             self.marks[-1][1].synchronize()
-        return [a.elapsed_time(b) for a, b in self.marks]
+        out = []
+        for a, b, k in self.marks:
+            ms = (b - a) * 1e3 if not self.cuda else a.elapsed_time(b)
+            out.extend([ms / k] * k)
+        return out
 
 
 def _draw_sample(it):
@@ -180,6 +204,10 @@ class TPUEstimator:
         self._tb_dir: Optional[str] = None
         self._tb_train = None
         self._tb_val = None
+        self._fuse_probe_cache: Dict[Any, int] = {}
+        self.fuse = 1                   # k of the last fit (1: unfused)
+        self.eval_fuse = 1              # k of the last evaluate
+        self.probe_steps = 0            # rolled-back train probe steps
 
     @staticmethod
     def latest_checkpoint(model_dir: str) -> Optional[str]:
@@ -367,6 +395,22 @@ class TPUEstimator:
                 self.model_dir)[0] is None:
             # a restore point exists before the first step
             self.save_checkpoint(self.model_dir)
+        try:
+            fuse = self._choose_fuse(it, steps_per_epoch, trigger)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except (ValueError, TypeError):
+            raise           # config and validation errors surface
+        except Exception as e:
+            # the auto probe runs real (rolled-back) steps before the fit
+            # loop's retry handler exists: a recoverable fit trains
+            # unfused, as in the JAX estimator
+            if not can_recover:
+                raise
+            logger.warning("fuse probe failed (%s: %s); training unfused",
+                           type(e).__name__, e)
+            fuse = 1
+        self.fuse = fuse
         watcher = PreemptionWatcher() if can_recover else None
         try:
             with (watcher if watcher is not None
@@ -380,7 +424,7 @@ class TPUEstimator:
                         it, epochs, steps_per_epoch, batch_size,
                         feature_cols, label_cols, validation_data, trigger,
                         profile, verbose, can_recover, retries_left,
-                        watcher)
+                        watcher, fuse)
         finally:
             # a failed async write gets one blocking retry
             if not self.flush_checkpoints() and self.model_dir is not None:
@@ -390,16 +434,193 @@ class TPUEstimator:
                     logger.error("final checkpoint could not be written "
                                  "(%s)", save_err)
 
+    # --- fused dispatch -----------------------------------------------------
+    def _fuse_cfg(self):
+        """Config ``steps_per_dispatch``, parsed once for fit and evaluate:
+        "auto" (default) or a pinned positive int (1 disables fusion)."""
+        cfg = self.config.get("steps_per_dispatch", "auto")
+        if cfg == "auto":
+            return "auto"
+        return max(1, int(cfg)) if cfg else 1
+
+    @staticmethod
+    def _iter_batch_bytes(it) -> int:
+        row_bytes = sum(int(np.asarray(a[:1]).nbytes)
+                        for a in tuple(it.x) + tuple(it.y or ()))
+        return row_bytes * it.local_bs
+
+    @staticmethod
+    def _probe_key(kind: str, it):
+        return (kind, it.local_bs) + tuple(
+            (np.asarray(a[:1]).shape[1:], str(np.asarray(a[:1]).dtype))
+            for a in tuple(it.x) + tuple(it.y or ()))
+
+    @staticmethod
+    def _apply_fuse_caps(k, batch_bytes, steps, trigger=None) -> int:
+        """Caps shared by the pinned and auto paths, for train and eval:
+        superbatch memory, checkpoint cadence, epoch length."""
+        if batch_bytes > 0:
+            byte_cap = max(learn_utils.MAX_GROUP_BYTES // batch_bytes, 1)
+            if k > byte_cap:
+                logger.warning(
+                    "steps_per_dispatch %d capped to %d so a stacked "
+                    "superbatch stays under %dMB", k, byte_cap,
+                    learn_utils.MAX_GROUP_BYTES >> 20)
+                k = byte_cap
+        # never fuse past the trigger's interval (a composite reports its
+        # tightest child's)
+        cap = trigger.fuse_cap() if trigger is not None else None
+        if cap:
+            k = min(k, cap)
+        return max(1, min(k, steps))
+
+    def _graph_refused(self) -> bool:
+        """Whether the engine's graph gate keeps this module unfused on the
+        card (logged)."""
+        reason = self.engine.graph_gate()
+        if reason is not None:
+            logger.warning("training unfused on %s: %s", self.device, reason)
+        return reason is not None
+
+    def _choose_fuse(self, it, steps_per_epoch, trigger=None) -> int:
+        """The fusion factor of this fit: 1 for an iterator without
+        ``supports_fused``, an explicit ``steps_per_epoch`` or a module the
+        graph gate refuses; else config ``steps_per_dispatch`` pinned, or
+        ``"auto"`` probed once per input signature; then capped."""
+        if not getattr(it, "supports_fused", False) or \
+                steps_per_epoch is not None:
+            return 1
+        if self._graph_refused():
+            return 1
+        cfg = self._fuse_cfg()
+        batch_bytes = self._iter_batch_bytes(it)
+        if cfg != "auto":
+            k = cfg
+        elif it.steps_per_epoch < 2:
+            return 1
+        else:
+            key = self._probe_key("train", it)
+            k = self._fuse_probe_cache.get(key)
+            if k is None:
+                k = self._auto_probe_fuse(it, batch_bytes)
+                self._fuse_probe_cache[key] = k
+        return self._apply_fuse_caps(k, batch_bytes, it.steps_per_epoch,
+                                     trigger)
+
+    def _sync(self):
+        """Wait for the work queued so far (the probes' timing)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _auto_probe_fuse(self, it, batch_bytes: int) -> int:
+        """Time the pipelined loop of real train steps, then roll the
+        engine back to a snapshot: the probe leaves the trajectory as if
+        it never ran. On the card the first probe step is counted for its
+        FLOPs (``estimate_step_compute_s``); a compute-dominated step (>=
+        10 ms) stays unfused without the timing."""
+        eng = self.engine
+        # the probe's epoch must not advance the shuffle counter: restore
+        # it on every exit
+        epoch_counter = getattr(it, "_epoch", None)
+        gen = it.epoch(shuffle=False, prefetch=False)
+        snap = None
+        try:
+            b0 = next(gen)
+            m = max(2, min(6, it.steps_per_epoch - 1,
+                           int((64 << 20) // max(batch_bytes, 1)) or 2))
+            probe = [b0]
+            for _ in range(m):
+                b = next(gen, None)
+                if b is None:
+                    break
+                probe.append(b)       # the copy happens here, untimed
+            snap = eng.snapshot()
+            steps0 = eng.step
+            compute_s = learn_utils.estimate_step_compute_s(
+                lambda: eng.train_batch(b0), self.device)
+            if compute_s is not None and compute_s >= 0.01:
+                return 1              # compute-dominated
+            if compute_s is None:
+                eng.train_batch(b0)   # built and warm
+            self._sync()
+            dt = float("inf")
+            for _ in range(2):        # min of 2 washes out spikes
+                t0 = time.perf_counter()
+                for i in range(m):
+                    eng.train_batch(probe[i % len(probe)])
+                self._sync()
+                dt = min(dt, (time.perf_counter() - t0) / m)
+        finally:
+            if snap is not None:
+                self.probe_steps += eng.step - steps0
+                eng.restore_snapshot(snap)
+            gen.close()
+            if epoch_counter is not None:
+                it._epoch = epoch_counter
+        k = learn_utils.auto_fuse_factor(dt, it.steps_per_epoch,
+                                         batch_bytes=batch_bytes,
+                                         compute_s=compute_s)
+        if k > 1:
+            logger.info("fusing %d train steps per dispatch "
+                        "(pipelined probe %.2f ms/step)", k, dt * 1e3)
+        return k
+
+    def _choose_eval_fuse(self, it, sample, num_steps) -> int:
+        """The fusion factor of ``evaluate``: evaluation changes nothing but
+        its metric states, so the probe times real steps on ``sample``
+        and drops their states. The probed k is cached per input
+        signature (``fit(validation_data=)`` evaluates every epoch);
+        ``num_steps`` keeps the per-step loop."""
+        if not getattr(it, "supports_fused", False) or \
+                num_steps is not None or it.steps_per_epoch < 2:
+            return 1
+        if self.engine.graph_gate() is not None:
+            return 1
+        cfg = self._fuse_cfg()
+        batch_bytes = self._iter_batch_bytes(it)
+        if cfg != "auto":
+            k = cfg
+        else:
+            key = self._probe_key("eval", it)
+            k = self._fuse_probe_cache.get(key)
+            if k is None:
+                k = self._auto_probe_eval_fuse(it, sample, batch_bytes)
+                self._fuse_probe_cache[key] = k
+        return self._apply_fuse_caps(k, batch_bytes, it.steps_per_epoch)
+
+    def _auto_probe_eval_fuse(self, it, sample, batch_bytes: int) -> int:
+        eng = self.engine
+        sample = sample.to(self.device)
+        states = eng.init_metric_states()
+        compute_s = learn_utils.estimate_step_compute_s(
+            lambda: eng.eval_batch(states, sample), self.device)
+        if compute_s is not None and compute_s >= 0.01:
+            return 1
+        states, _, _ = eng.eval_batch(states, sample)    # warm
+        self._sync()
+        dt = float("inf")
+        m = 6
+        for _ in range(2):          # min of 2 washes out spikes
+            t0 = time.perf_counter()
+            for _ in range(m):
+                states, _, _ = eng.eval_batch(states, sample)
+            self._sync()
+            dt = min(dt, (time.perf_counter() - t0) / m)
+        return learn_utils.auto_fuse_factor(dt, it.steps_per_epoch,
+                                            batch_bytes=batch_bytes,
+                                            compute_s=compute_s)
+
     def _fit_loop(self, it, epochs, steps_per_epoch, batch_size,
                   feature_cols, label_cols, validation_data, trigger,
-                  profile, verbose, can_recover, retries_left, watcher):
+                  profile, verbose, can_recover, retries_left, watcher,
+                  fuse=1):
         epoch_stats = []
         ep = 0
         while ep < epochs:
             try:
                 with _trace.span("epoch", epoch=ep):
                     stats = self._fit_epoch(it, ep, steps_per_epoch,
-                                            trigger, profile, watcher)
+                                            trigger, profile, watcher, fuse)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:
@@ -455,15 +676,23 @@ class TPUEstimator:
         return epoch_stats
 
     def _fit_epoch(self, it, ep: int, steps_per_epoch: Optional[int],
-                   trigger, profile: bool, watcher=None) -> Dict[str, Any]:
+                   trigger, profile: bool, watcher=None,
+                   fuse: int = 1) -> Dict[str, Any]:
+        """One epoch of the hot loop; raises through to ``fit``'s retry.
+        With ``fuse`` > 1 the iterator yields stacked superbatches and
+        each dispatch runs ``fuse`` steps (``train_batch_group``); the
+        trigger and the preemption watcher are checked between
+        dispatches."""
         t0 = time.time()
-        losses = []                    # device scalars, read at epoch end
+        losses = []                # device scalars, or (k,) per group
+        tb_steps = []
         nsteps = steps_per_epoch or it.steps_per_epoch
         timer = _StepTimer(self.device) if profile else None
         data_s = 0.0
-        batches = iter(it.epoch())
+        steps_done = 0
+        batches = iter(it.epoch(fuse=fuse) if fuse > 1 else it.epoch())
         try:
-            while len(losses) < nsteps:
+            while fuse > 1 or steps_done < nsteps:
                 td = time.perf_counter()
                 batch = next(batches, None)
                 if batch is None:
@@ -471,11 +700,19 @@ class TPUEstimator:
                 data_s += time.perf_counter() - td
                 if timer is not None:
                     timer.start()
-                loss = self.engine.train_batch(batch)
+                if batch.fused > 1:
+                    loss = self.engine.train_batch_group(batch)
+                else:
+                    loss = self.engine.train_batch(batch)
+                took = batch.fused
                 if timer is not None:
-                    timer.stop()
-                losses.append(loss)
-                self._trainer_state.iteration += 1
+                    timer.stop(took)
+                steps_done += took
+                losses.append(loss.reshape(-1))
+                self._trainer_state.iteration += took
+                if self._tb_train is not None:
+                    it_now = self._trainer_state.iteration
+                    tb_steps.extend(range(it_now - took + 1, it_now + 1))
                 if trigger and self.model_dir:
                     self._trainer_state.epoch_finished = False
                     if trigger(self._trainer_state):
@@ -486,11 +723,10 @@ class TPUEstimator:
             close = getattr(batches, "close", None)
             if close is not None:
                 close()                 # stops the pump's threads
-        host_losses = torch.stack(losses).cpu().numpy()
+        host_losses = torch.cat(losses).cpu().numpy()
         if self._tb_train is not None:
-            first = self._trainer_state.iteration - len(host_losses) + 1
-            for i, lv in enumerate(host_losses):
-                self._tb_train.add_scalar("Loss", float(lv), first + i)
+            for step, lv in zip(tb_steps, host_losses):
+                self._tb_train.add_scalar("Loss", float(lv), step)
             self._tb_train.flush()
         mean_loss = float(np.mean(host_losses))
         self._trainer_state.epoch += 1
@@ -516,19 +752,27 @@ class TPUEstimator:
         ``num_samples``."""
         it = self._iterator(data, batch_size, feature_cols, label_cols,
                             False)
-        _draw_sample(it)
+        sample = _draw_sample(it)
+        self.engine.materialize(sample)
+        fuse = self._choose_eval_fuse(it, sample, num_steps)
+        self.eval_fuse = fuse
         states = self.engine.init_metric_states()
-        losses, counts = [], []
-        batches = it.epoch(shuffle=False)
+        losses, counts = [], []         # per step, in step order
+        batches = (it.epoch(shuffle=False, fuse=fuse) if fuse > 1
+                   else it.epoch(shuffle=False))
         for i, batch in enumerate(batches):
             if num_steps is not None and i >= num_steps:
                 break
-            states, batch_loss, n = self.engine.eval_batch(states, batch)
-            losses.append(batch_loss)
-            counts.append(n)
+            if batch.fused > 1:
+                states, batch_loss, n = self.engine.eval_batch_group(
+                    states, batch)
+            else:
+                states, batch_loss, n = self.engine.eval_batch(states, batch)
+            losses.append(batch_loss.reshape(-1))
+            counts.append(n.reshape(-1))
         getattr(batches, "close", lambda: None)()
-        loss_sum = float(torch.stack(losses).sum())
-        count = float(torch.stack(counts).sum())
+        loss_sum = float(torch.cat(losses).sum())
+        count = float(torch.cat(counts).sum())
         result = self.engine.finalize_metrics(states, loss_sum, count)
         if verbose:
             logger.info("validation: %s", result)

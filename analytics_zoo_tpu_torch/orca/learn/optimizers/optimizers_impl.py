@@ -19,12 +19,22 @@ exact arithmetic (they differ only in rounding order):
   torch's AdamW first scales p by (1 - lr*wd), then p -= lr*adam: the same
   sum.
 
-A schedule (``Default``, ``Poly``, ``Warmup``, ``SequentialSchedule``)
-rides on the factory as ``factory.lr_at(step)``: the engine sets every
-param group's lr to it before each update, with the count of earlier
-updates, which is optax's ``scale_by_schedule`` (optax multiplies the
-update by ``lr(count)``; each of the three rules above is linear in its
-lr, AdamW's decay term included). A constant lr leaves ``lr_at`` None.
+A schedule (any of ``schedule.py``) rides on the factory as
+``factory.lr_at(step)``: the engine sets every param group's lr to it
+before each update, with the count of earlier updates, which is optax's
+``scale_by_schedule`` (optax multiplies the update by ``lr(count)``; each
+of the three rules above is linear in its lr, AdamW's decay term
+included). A constant lr leaves ``lr_at`` None. Adam's ``decay`` d is the
+JAX class's lr function ``schedule(step) / (1 + d * step)``.
+
+**On the card every optimizer is capture-safe** (a fused group is one
+CUDA-graph replay, ``orca/learn/graphs.py``): its lr is a 0-dim float32
+device tensor per param group, which the engine writes before each eager
+update and a graph copies from its per-replay table; ``SGD`` is built
+``fused=True`` (torch's fused kernel takes the lr tensor without reading
+it back), ``Adam``/``AdamWeightDecay`` ``capturable=True`` (step counts
+and bias corrections on the device), and the rules below keep their step
+count on the device. On the CPU the lr stays a float, as before.
 
 Five more compute optax's formulas, which are not torch's built-ins', so
 each is its own ``torch.optim.Optimizer`` here (in f32, the order of
@@ -61,7 +71,6 @@ from __future__ import annotations
 import inspect
 from typing import Callable, Iterable, Optional
 
-import numpy as np
 import torch
 
 from .schedule import Default, Scheduler
@@ -85,14 +94,28 @@ class Optimizer:
         """The lr of the update that follows ``step`` earlier updates."""
         return self.schedule.lr_at(step, self.lr)
 
+    def _scheduled(self) -> bool:
+        return type(self.schedule) is not Default
+
     def _factory(self, make: OptimizerFactory) -> OptimizerFactory:
         """``make`` with the schedule as ``make.lr_at`` (None: constant)."""
-        make.lr_at = (None if type(self.schedule) is Default
-                      else self.lr_at)
+        make.lr_at = self.lr_at if self._scheduled() else None
         return make
+
+    def _lr(self, params) -> float | torch.Tensor:
+        """The lr to build the optimizer with: a float32 device tensor when
+        the parameters are on the card, else the float."""
+        dev = params[0].device if params else torch.device("cpu")
+        if dev.type != "cuda":
+            return self.lr
+        return torch.tensor(float(self.lr), dtype=torch.float32, device=dev)
 
     def to_torch(self) -> OptimizerFactory:
         raise NotImplementedError
+
+
+def _on_card(params) -> bool:
+    return bool(params) and params[0].device.type == "cuda"
 
 
 class SGD(Optimizer):
@@ -105,8 +128,9 @@ class SGD(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: torch.optim.SGD(
-            params, lr=self.lr, momentum=self.momentum,
-            nesterov=self.nesterov, weight_decay=self.weightdecay))
+            params, lr=self._lr(params), momentum=self.momentum,
+            nesterov=self.nesterov, weight_decay=self.weightdecay,
+            fused=True if _on_card(params) else None))
 
 
 class Adam(Optimizer):
@@ -114,14 +138,20 @@ class Adam(Optimizer):
                  beta_2: float = 0.999, epsilon: float = 1e-8,
                  decay: float = 0.0, schedule=None, **_):
         super().__init__(lr, schedule)
-        if decay:
-            raise NotImplementedError("Adam's lr decay is a schedule and is "
-                                      "not ported yet")
-        self.b1, self.b2, self.eps = beta_1, beta_2, epsilon
+        self.b1, self.b2, self.eps, self.decay = (beta_1, beta_2, epsilon,
+                                                  decay)
+
+    def _scheduled(self) -> bool:
+        return super()._scheduled() or bool(self.decay)
+
+    def lr_at(self, step: int) -> float:
+        """The schedule's lr over ``1 + decay * step`` (the JAX class's)."""
+        return super().lr_at(step) / (1.0 + self.decay * step)
 
     def to_torch(self):
         return self._factory(lambda params: torch.optim.Adam(
-            params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps))
+            params, lr=self._lr(params), betas=(self.b1, self.b2),
+            eps=self.eps, capturable=_on_card(params)))
 
 
 class ParallelAdam(Adam):
@@ -141,14 +171,17 @@ class AdamWeightDecay(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: torch.optim.AdamW(
-            params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.wd))
+            params, lr=self._lr(params), betas=(self.b1, self.b2),
+            eps=self.eps, weight_decay=self.wd,
+            capturable=_on_card(params)))
 
 
 class _OptaxRule(torch.optim.Optimizer):
     """A ``torch.optim.Optimizer`` applying p += -lr * direction(g), with
     g = grad + weight_decay * p (optax's ``add_decayed_weights`` first in
-    the chain). Subclasses give ``_direction(g, state, group)``."""
+    the chain). Subclasses give ``_direction(g, state, group)``. Every
+    operation is a device operation (the lr a float or a device tensor),
+    so a step captures into a CUDA graph."""
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0,
                  **defaults):
@@ -219,7 +252,10 @@ class AdamaxRule(_OptaxRule):
 
     def _direction(self, g, state, group):
         if "step" not in state:
-            state["step"] = torch.tensor(0.0)
+            # the count lives with the parameter (on the card: no host
+            # read per step, and a captured step advances it)
+            state["step"] = torch.zeros((), dtype=torch.float32,
+                                        device=g.device)
             state["exp_avg"] = torch.zeros_like(g)
             state["exp_inf"] = torch.zeros_like(g)
         b1, b2 = group["b1"], group["b2"]
@@ -228,9 +264,10 @@ class AdamaxRule(_OptaxRule):
         mu.copy_((1 - b1) * g + b1 * mu)
         nu.copy_(torch.maximum(g.abs() + group["eps"], b2 * nu))
         # 1 - b1^t in f32, as optax computes it
-        correction = np.float32(1) - np.float32(b1) ** np.float32(
-            state["step"].item())
-        return (mu / float(correction)) / nu
+        correction = 1.0 - torch.pow(
+            torch.tensor(b1, dtype=torch.float32, device=g.device),
+            state["step"])
+        return (mu / correction) / nu
 
 
 class AdadeltaRule(_OptaxRule):
@@ -264,7 +301,7 @@ class Adagrad(Optimizer):
 
     def to_torch(self):
         make = self._factory(lambda params: AdagradRule(
-            params, lr=self.lr, weight_decay=self.weightdecay))
+            params, lr=self._lr(params), weight_decay=self.weightdecay))
         if self.lr_decay:
             make.lr_at = self.lr_at
         return make
@@ -277,7 +314,7 @@ class Adadelta(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: AdadeltaRule(
-            params, lr=self.lr, rho=self.rho, eps=self.eps))
+            params, lr=self._lr(params), rho=self.rho, eps=self.eps))
 
 
 class Adamax(Optimizer):
@@ -288,7 +325,8 @@ class Adamax(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: AdamaxRule(
-            params, lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps))
+            params, lr=self._lr(params), b1=self.b1, b2=self.b2,
+            eps=self.eps))
 
 
 class RMSprop(Optimizer):
@@ -299,7 +337,7 @@ class RMSprop(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: RMSpropRule(
-            params, lr=self.lr, decay=self.decay, eps=self.eps))
+            params, lr=self._lr(params), decay=self.decay, eps=self.eps))
 
 
 class Ftrl(Optimizer):
@@ -316,7 +354,7 @@ class Ftrl(Optimizer):
 
     def to_torch(self):
         return self._factory(lambda params: AdagradRule(
-            params, lr=self.lr, weight_decay=self.l2,
+            params, lr=self._lr(params), weight_decay=self.l2,
             initial_accumulator_value=self.init_acc))
 
 

@@ -60,6 +60,20 @@ class LeafOp:
         return f"LeafOp({self.name})"
 
 
+def _device_const(arr: np.ndarray):
+    """``device -> arr`` as a tensor on that device, copied once per
+    device: a host-to-device copy inside a step that a CUDA graph captures
+    would not be replayed."""
+    cache = {}
+
+    def on(device):
+        t = cache.get(device)
+        if t is None:
+            t = cache[device] = torch.from_numpy(arr).to(device)
+        return t
+    return on
+
+
 def image_normalize(mean: Sequence[float] = IMAGENET_MEAN,
                     std: Sequence[float] = IMAGENET_STD) -> LeafOp:
     """uint8 pixels → f32 ``(x - mean) * (1/std)`` per channel. The inverse
@@ -69,9 +83,10 @@ def image_normalize(mean: Sequence[float] = IMAGENET_MEAN,
     inv_np = (np.float32(1.0) / np.asarray(std, np.float32)).astype(
         np.float32)
 
+    mean_on, inv_on = _device_const(mean_np), _device_const(inv_np)
+
     def dev(a):
-        return (a.to(torch.float32) - torch.from_numpy(mean_np).to(a.device)) \
-            * torch.from_numpy(inv_np).to(a.device)
+        return (a.to(torch.float32) - mean_on(a.device)) * inv_on(a.device)
 
     def host(a):
         return ((a.astype(np.float32) - mean_np) * inv_np).astype(np.float32)
@@ -82,9 +97,10 @@ def image_normalize(mean: Sequence[float] = IMAGENET_MEAN,
 def rescale(factor: float = 1.0 / 255.0) -> LeafOp:
     """uint8/int → f32 ``x * factor`` (e.g. the /255 pixel scaling)."""
     f = np.float32(factor)
+    f_on = _device_const(np.asarray(f))
 
     def dev(a):
-        return a.to(torch.float32) * torch.tensor(f, device=a.device)
+        return a.to(torch.float32) * f_on(a.device)
 
     def host(a):
         return (a.astype(np.float32) * f).astype(np.float32)

@@ -28,9 +28,17 @@ stream ahead of the step (``native/infeed.py``, ``native/transfer.py``).
 ``prefetch=False`` gathers and copies inline. Both deliver the same
 batches in the same order.
 
+``epoch(fuse=k)`` groups k consecutive full batches into one stacked
+superbatch (leaves ``(k, batch, ...)``, ``Batch.fused == k``) for the
+engine's fused dispatch (``TrainEngine.train_batch_group``); the ragged
+tail comes as single batches, the last padded and masked. Stacking only
+reshapes: the rows, their order and their bytes are those of the k
+single batches. :func:`auto_fuse_factor` and
+:func:`estimate_step_compute_s` size k for ``steps_per_dispatch:
+"auto"``.
+
 pandas is imported by none of this: a DataFrame can only reach these
-functions once its caller has imported pandas. Not ported yet: fused
-(stacked) superbatches.
+functions once its caller has imported pandas.
 """
 
 from __future__ import annotations
@@ -53,6 +61,21 @@ from ...utils import nest
 from ..data.chunked import ChunkedArray, as_chunked
 from ..data.shard import HostXShards
 
+# typical training MFU assumed when converting a step's FLOPs to a
+# compute-time estimate (the JAX package's value)
+ASSUMED_TRAIN_MFU = 0.3
+
+# ceiling for one stacked (fuse, batch, ...) superbatch: bounds the device
+# copy and the host gather of one fused group
+MAX_GROUP_BYTES = 256 << 20
+
+# dense peak FLOP/s by device name and the type an operation runs in:
+# NVIDIA's H100 data sheet, SXM part, dense rates without sparsity (at the
+# 700 W power limit); "tf32" is a float32 matmul or convolution that torch
+# lets run on the TF32 tensor cores, "float32" one that it does not
+_PEAKS = (("h100", {"bfloat16": 989e12, "float16": 989e12,
+                    "tf32": 495e12, "float32": 67e12}),)
+
 
 @dataclass
 class Batch:
@@ -63,6 +86,7 @@ class Batch:
     y: Optional[Tuple[Any, ...]]
     w: Optional[Any]
     ready: Optional[Any] = None
+    fused: int = 1          # k > 1: a stacked superbatch of k full batches
 
     def leaves(self):
         return list(self.x) + list(self.y or ()) + (
@@ -74,7 +98,7 @@ class Batch:
                      y=tuple(leaves[nx:nx + ny]) if self.y is not None
                      else None,
                      w=leaves[nx + ny] if self.w is not None else None,
-                     ready=ready)
+                     ready=ready, fused=self.fused)
 
     def to(self, device: torch.device) -> "Batch":
         """The batch as tensors on ``device``, ready for the current
@@ -205,17 +229,116 @@ def update_predict_xshards(xshards: HostXShards,
     return xshards.zip(pred_shards).transform_shard(merge)
 
 
+def peak_flops(device: torch.device, kind: str = "bfloat16") -> float:
+    """Dense peak FLOP/s of a CUDA device by its name for operations of
+    ``kind`` (a key of the peak table), 0.0 when unknown (the CPU, a card
+    or type the table does not name)."""
+    if device.type != "cuda":
+        return 0.0
+    name = torch.cuda.get_device_name(device).lower()
+    for key, peaks in _PEAKS:
+        if key in name:
+            return peaks.get(kind, 0.0)
+    return 0.0
+
+
+def _flop_kind(func, dtype) -> str:
+    """The peak-table row of an operation on ``dtype`` inputs."""
+    if dtype != torch.float32:
+        return str(dtype).replace("torch.", "")
+    conv = "convolution" in func._overloadpacket.__name__
+    tf32 = (torch.backends.cudnn.allow_tf32 if conv
+            else torch.backends.cuda.matmul.allow_tf32)
+    return "tf32" if tf32 else "float32"
+
+
+def estimate_step_compute_s(run_step: Callable[[], Any],
+                            device: torch.device) -> Optional[float]:
+    """Analytic per-step compute-time estimate: the FLOPs of one call of
+    ``run_step`` (one train or eval step; the operations
+    ``torch.utils.flop_counter`` counts: matmuls, convolutions,
+    attention), each type's over its dense peak on the device, over
+    ASSUMED_TRAIN_MFU. It decides whether a step is compute-dominated
+    independently of wall-clock readings, which also hold the host's
+    dispatch time. The JAX package divides by the bf16 peak, the type its
+    TPU runs float32 matmuls in; on the card a float32 matmul without TF32
+    runs at the float32 rate, so each operation takes its own type's peak.
+    None when a peak is unknown (the CPU): ``run_step`` is then not
+    called."""
+    if peak_flops(device) <= 0:
+        return None
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+    registry = FlopCounterMode(display=False).flop_registry
+    seconds = [0.0]
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            flops_of = registry.get(func._overloadpacket)
+            if flops_of is not None:
+                dtype = next(a.dtype for a in args
+                             if isinstance(a, torch.Tensor))
+                peak = peak_flops(device, _flop_kind(func, dtype))
+                if peak > 0:
+                    seconds[0] += flops_of(*args, **kwargs,
+                                           out_val=out) / peak
+            return out
+
+    with _Count():
+        run_step()
+    return seconds[0] / ASSUMED_TRAIN_MFU if seconds[0] > 0 else None
+
+
+def auto_fuse_factor(step_time_s: float, steps_per_epoch: int,
+                     batch_bytes: int = 0,
+                     compute_s: Optional[float] = None,
+                     target_s: float = 0.25, max_fuse: int = 128,
+                     max_group_bytes: int = MAX_GROUP_BYTES) -> int:
+    """How many train steps to fuse into one dispatch (the JAX package's
+    function).
+
+    ``step_time_s`` is the pipelined per-step wall time (min of several
+    runs of m steps and one wait, over m). ``compute_s``, the analytic
+    estimate, decides the compute-dominated gate when it is known (>= 10
+    ms: stay unfused); k is then sized so one fused group runs about
+    ``target_s``, off the geometric mean of the two times when the
+    analytic part is the smaller, rounded up to a power of two and capped
+    so a stacked superbatch stays under ``max_group_bytes``."""
+    if steps_per_epoch < 2:
+        return 1
+    gate = compute_s if compute_s is not None else step_time_s
+    if gate >= 0.01:
+        return 1
+    if compute_s is not None and compute_s < step_time_s:
+        denom = math.sqrt(max(compute_s, 1e-6) * step_time_s)
+    else:
+        denom = max(step_time_s, 1e-5)
+    k = int(target_s / denom)
+    if k <= 1:
+        return 1
+    k = 1 << (k - 1).bit_length()           # round up to a power of two
+    if batch_bytes > 0:
+        k = min(k, max(max_group_bytes // batch_bytes, 1))
+    return max(1, min(k, max_fuse, steps_per_epoch))
+
+
 class DeviceFeed:
     """The device side of an epoch iterator, shared by
     :class:`BatchIterator` and ``orca.data.image.ImageNetPipeline``. A
     subclass plans an epoch with ``_host_batch_tasks(shuffle, staged)``,
     an iterator of zero-argument assembly tasks in batch order (``staged``:
     assemble into the pinned ``StagingPool``); this class runs them inline
-    or through the infeed pump and copies their batches to ``device``.
+    or through the infeed pump and copies their batches to ``device``. A
+    subclass that stacks superbatches (``supports_fused``) takes ``fuse``
+    too.
 
     ``stats`` (a :class:`PipelineStats`) records the ``assemble`` and
     ``h2d`` stages; ``prefetch_depth``/``prefetch_workers`` size the pump.
     """
+
+    supports_fused = False
 
     def __init__(self, device: Optional[torch.device] = None,
                  stats: Optional[PipelineStats] = None,
@@ -231,6 +354,12 @@ class DeviceFeed:
     def _host_batch_tasks(self, shuffle: bool, staged: bool = False
                           ) -> Iterator[Callable[[], Batch]]:
         raise NotImplementedError
+
+    def _tasks(self, shuffle: bool, fuse: int, staged: bool = False
+               ) -> Iterator[Callable[[], Batch]]:
+        if fuse > 1:
+            return self._host_batch_tasks(shuffle, fuse=fuse, staged=staged)
+        return self._host_batch_tasks(shuffle, staged=staged)
 
     def _staging_pool(self) -> Optional[xfer.StagingPool]:
         """Pinned gather buffers for the prefetch path on the card, in a
@@ -261,21 +390,28 @@ class DeviceFeed:
             ev.synchronize()
         return b.rebuild(out, ready=ev)
 
-    def _device_epoch(self, shuffle: bool, prefetch: bool
+    def _device_epoch(self, shuffle: bool, prefetch: bool, fuse: int = 1
                       ) -> Iterator[Batch]:
         """One epoch's batches on ``device``: through the infeed pump
         (``prefetch``) or assembled and copied inline; both deliver the
-        same batches in the same order."""
+        same batches in the same order. A fused epoch's pump runs one
+        assembly worker and one transfer lane, the window the
+        superbatches' byte-bounded staging ring is sized for
+        (``xfer.FUSED_STAGING_BYTES``)."""
         if not prefetch:
-            return self._inline_epoch(shuffle)
+            return self._inline_epoch(shuffle, fuse)
+        fused = fuse > 1
         return iter(InfeedPump(
-            lambda: self._host_batch_tasks(shuffle, staged=True),
+            lambda: self._tasks(shuffle, fuse, staged=True),
             device_put=partial(self._put_batch, lane=True),
-            depth=self.prefetch_depth, workers=self.prefetch_workers,
+            depth=self.prefetch_depth,
+            workers=1 if fused else self.prefetch_workers,
+            max_lanes=1 if fused else xfer.MAX_H2D_LANES,
             stats=self.stats))
 
-    def _inline_epoch(self, shuffle: bool) -> Iterator[Batch]:
-        for task in self._host_batch_tasks(shuffle):
+    def _inline_epoch(self, shuffle: bool, fuse: int = 1
+                      ) -> Iterator[Batch]:
+        for task in self._tasks(shuffle, fuse):
             t0 = time.perf_counter()
             b = task()
             t1 = time.perf_counter()
@@ -292,6 +428,8 @@ class BatchIterator(DeviceFeed):
     ``device`` (host numpy batches when ``device`` is None). ``data`` is
     ``{"x": tuple, "y": tuple}`` of arrays or :class:`ChunkedArray` leaves,
     or XShards of such partitions (chunked here)."""
+
+    supports_fused = True       # epoch(fuse=k) stacks superbatches
 
     def __init__(self, data, batch_size: int, shuffle: bool = False,
                  seed: int = 0, pad_tail: bool = True,
@@ -318,20 +456,36 @@ class BatchIterator(DeviceFeed):
         self._epoch = 0
 
     # --- assembly -----------------------------------------------------------
-    def _gather_leaf(self, a: ChunkedArray, idx: np.ndarray, staged: bool):
-        """The rows ``idx`` of a leaf, narrowed to its wire dtype: into a
-        pinned ring slot when ``staged`` on the card, else a host array.
-        A contiguous run comes back from the chunks as a view, and a wide
-        leaf gathers before it narrows: both are copied into the slot."""
+    def _gather_leaf(self, a: ChunkedArray, idx: np.ndarray, staged: bool,
+                     lead: Optional[Tuple[int, ...]] = None):
+        """The rows ``idx`` of a leaf, narrowed to its wire dtype and
+        shaped ``lead + row shape`` (``lead`` defaults to ``(len(idx),)``;
+        a superbatch's is ``(k, batch)``): into a pinned ring slot when
+        ``staged`` on the card, else a host array. A contiguous run comes
+        back from the chunks as a view, and a wide leaf gathers before it
+        narrows: both are copied into the slot. A superbatch's slots come
+        from a ring bounded in bytes."""
+        lead = lead or (len(idx),)
         pool = self._staging_pool() if staged else None
         if pool is None:
-            return xfer.narrow_wire(a.gather(idx))
+            return xfer.narrow_wire(a.gather(idx)).reshape(
+                lead + a.shape[1:])
         wire = xfer.narrows_to(a.dtype) or a.dtype
-        slot = pool.acquire((len(idx),) + a.shape[1:], wire, tag=id(a))
-        got = a.gather(idx, out=slot.array if wire == a.dtype else None)
-        if got is not slot.array:
-            np.copyto(slot.array, got, casting="unsafe")
+        ring = (xfer.fused_ring(self._group_nbytes(lead[0]))
+                if len(lead) > 1 else None)
+        slot = pool.acquire(lead + a.shape[1:], wire, tag=id(a), ring=ring)
+        rows = slot.array.reshape((len(idx),) + a.shape[1:])
+        got = a.gather(idx, out=rows if wire == a.dtype else None)
+        if got is not rows:
+            np.copyto(rows, got, casting="unsafe")
         return slot
+
+    def _group_nbytes(self, fuse: int) -> int:
+        """Wire bytes of one stacked superbatch of ``fuse`` batches."""
+        return fuse * self.local_bs * sum(
+            int(np.prod(a.shape[1:], dtype=np.int64))
+            * (xfer.narrows_to(a.dtype) or np.dtype(a.dtype)).itemsize
+            for a in tuple(self.x) + tuple(self.y or ()))
 
     def _assemble_batch(self, idx: np.ndarray, w: Optional[np.ndarray],
                         staged: bool = False) -> Batch:
@@ -342,19 +496,50 @@ class BatchIterator(DeviceFeed):
                         if self.y is not None else None),
                      w=w)
 
-    def _host_batch_tasks(self, shuffle: bool, staged: bool = False
+    def _assemble_group(self, idx: np.ndarray, fuse: int,
+                        staged: bool = False) -> Batch:
+        """One stacked ``(fuse, batch, ...)`` superbatch of full batches."""
+        lead = (fuse, self.local_bs)
+        return Batch(x=tuple(self._gather_leaf(a, idx, staged, lead)
+                             for a in self.x),
+                     y=(tuple(self._gather_leaf(a, idx, staged, lead)
+                              for a in self.y)
+                        if self.y is not None else None),
+                     w=None, fused=fuse)
+
+    def _host_batch_tasks(self, shuffle: bool, fuse: int = 1,
+                          staged: bool = False
                           ) -> Iterator[Callable[[], Batch]]:
         """Plan an epoch: yield zero-arg assembly tasks in batch order. The
         order is fixed here, so running the tasks inline or on the pump's
-        workers gives the same batches."""
+        workers gives the same batches.
+
+        ``fuse`` > 1 groups that many consecutive full batches into one
+        stacked superbatch. The ragged tail comes as single batches, the
+        last padded and masked: padding a whole superbatch would make
+        fully empty steps, whose zero-gradient updates are not no-ops
+        under momentum or Adam."""
         if shuffle:
             order = runtime.shuffled_indices(self.n,
                                              seed=self.seed + self._epoch)
         else:
             order = np.arange(self.n, dtype=np.int64)
         self._epoch += 1
-        for s in range(self.steps_per_epoch):
-            idx = order[s * self.local_bs:(s + 1) * self.local_bs]
+        group = self.local_bs * max(fuse, 1)
+        n_groups = self.n // group if fuse > 1 else 0
+        for s in range(n_groups):
+            yield partial(self._assemble_group,
+                          order[s * group:(s + 1) * group], fuse, staged)
+        done = n_groups * group
+        if fuse > 1:
+            rest = self.n - done
+            tail_steps = (math.ceil(rest / self.local_bs) if self.pad_tail
+                          else rest // self.local_bs)
+        else:
+            tail_steps = self.steps_per_epoch
+        for s in range(tail_steps):
+            idx = order[done + s * self.local_bs:
+                        done + (s + 1) * self.local_bs]
             real = len(idx)
             w = None
             if real < self.local_bs:
@@ -364,20 +549,22 @@ class BatchIterator(DeviceFeed):
                 w[:real] = 1.0
             yield partial(self._assemble_batch, idx, w, staged)
 
-    def _host_batches(self, shuffle: bool) -> Iterator[Batch]:
+    def _host_batches(self, shuffle: bool, fuse: int = 1
+                      ) -> Iterator[Batch]:
         """Assembled host batches, inline."""
-        for task in self._host_batch_tasks(shuffle):
+        for task in self._host_batch_tasks(shuffle, fuse):
             yield task()
 
     def epoch(self, shuffle: Optional[bool] = None,
-              prefetch: bool = True) -> Iterator[Batch]:
+              prefetch: bool = True, fuse: int = 1) -> Iterator[Batch]:
         """Yield the batches of one epoch: on ``device`` through the
         infeed pump (``prefetch``) or inline; host batches without a
-        device."""
+        device. ``fuse`` > 1 yields stacked superbatches for
+        ``TrainEngine.train_batch_group``."""
         shuffle = self.shuffle if shuffle is None else shuffle
         if self.device is None:
-            return self._host_batches(shuffle)
-        return self._device_epoch(shuffle, prefetch)
+            return self._host_batches(shuffle, fuse)
+        return self._device_epoch(shuffle, prefetch, fuse)
 
 
 def data_to_iterator(data: Any, batch_size: int, feature_cols=None,

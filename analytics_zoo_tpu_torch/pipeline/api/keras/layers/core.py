@@ -389,7 +389,13 @@ class Narrow(Layer):
 
 class GetShape(Layer):
     def forward(self, x):
-        return torch.tensor(x.shape, device=x.device)
+        # made once per (shape, device): a host-to-device copy inside a
+        # step that a CUDA graph captures would not be replayed
+        cache = self.__dict__.setdefault("_shapes", {})
+        key = (tuple(x.shape), x.device)
+        if key not in cache:
+            cache[key] = torch.tensor(x.shape, device=x.device)
+        return cache[key]
 
 
 class Threshold(Layer):

@@ -179,8 +179,10 @@ def test_estimator_retries_from_the_latest_checkpoint(tmp_path):
     tm = NeuralCF(device="cpu", user_count=50, item_count=30, class_num=2,
                   user_embed=8, item_embed=8, hidden_layers=(16, 8),
                   mf_embed=8)
+    # one step a dispatch: the failure is injected into train_batch
+    # (tests/test_torch_fused_dispatch.py fails a fused group)
     tm.compile(loss="sparse_categorical_crossentropy", optimizer="adam",
-               model_dir=str(tmp_path))
+               model_dir=str(tmp_path), config={"steps_per_dispatch": 1})
     eng = tm.estimator.engine
     inner, fired = eng.train_batch, []
 

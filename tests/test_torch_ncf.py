@@ -114,9 +114,11 @@ def port_twin(jm, opt_name, compute, **extra):
                   **WIDTHS)
     interop.load_flax_params(tm.module,
                              jax.device_get(jm.estimator.engine.params))
+    # one step a dispatch, as the JAX side: _record_steps wraps
+    # train_batch (tests/test_torch_fused_dispatch.py fuses NCF)
     tm.compile(loss="sparse_categorical_crossentropy",
                optimizer=getattr(topt, opt_name)(**OPTIMIZERS[opt_name]),
-               **extra)
+               config={"steps_per_dispatch": 1}, **extra)
     return tm
 
 

@@ -563,8 +563,12 @@ def test_plain_fit_epochs_shuffle_with_seed_plus_one(orca_context):
     with seed + e + 1, in both packages: the batches the engine trains on
     are the same arrays."""
     x, y = _data(37, (12,), 4, seed=6)
+    # one step a dispatch on both sides: the recorder below wraps
+    # train_batch, which an "auto" fit's probe also calls for its
+    # rolled-back timing steps (tests/test_torch_fused_dispatch.py holds
+    # the fused and probed orders)
     jest, test = _both(_seeded(_mlp), lambda m, cfg: torch.optim.SGD(
-        m.parameters(), lr=0.05))
+        m.parameters(), lr=0.05), config={"steps_per_dispatch": 1})
     seen = {"jax": [], "port": []}
     for key, eng in (("jax", jest.engine), ("port", test.engine)):
         inner = eng.train_batch

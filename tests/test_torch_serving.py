@@ -226,7 +226,7 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models.image.objectdetection.detector",
     "models.image.objectdetection.interop",
     "obs.export", "obs.__main__", "serving.fleet", "serving.http_frontend",
-    "shm.cli")]
+    "shm.cli", "orca.learn.graphs")]
 
 
 def test_port_imports_no_jax():
