@@ -1,0 +1,7 @@
+"""Feature engineering (counterpart of ``analytics_zoo_tpu/feature``): the
+FeatureSet cache tiers. The image and text inputs are not ported yet
+(ROADMAP A8)."""
+
+from .feature_set import DiskFeatureSet, FeatureSet
+
+__all__ = ["FeatureSet", "DiskFeatureSet"]

@@ -1,7 +1,8 @@
 """CUDA-graph capture and replay of fused step groups: the card's
 counterpart of the JAX engine's ``lax.scan`` over k steps
 (``analytics_zoo_tpu/orca/learn/engine.py`` ``_train_multi_step``,
-``_eval_multi_step``).
+``_eval_multi_step``), and of TCMF's ``lax.scan`` over epochs
+(``zouwu/model/tcmf.py``: one graph of an epoch, replayed).
 
 A :class:`StepGraph` holds one captured graph of k train (or eval) steps
 over static input buffers. :meth:`StepGraph.replay` copies a superbatch
@@ -45,9 +46,11 @@ import torch
 _CAPTURE_LOCK = threading.Lock()
 _SCOPES = threading.local()
 
-# captures and replays by kind ("train", "eval") since the process started
-CAPTURES: Dict[str, int] = {"train": 0, "eval": 0}
-REPLAYS: Dict[str, int] = {"train": 0, "eval": 0}
+# captures and replays by kind since the process started: the engine's
+# fused "train" and "eval" groups, and TCMF's epochs ("tcmf",
+# ``zouwu/model/tcmf.py``)
+CAPTURES: Dict[str, int] = {"train": 0, "eval": 0, "tcmf": 0}
+REPLAYS: Dict[str, int] = {"train": 0, "eval": 0, "tcmf": 0}
 
 
 def generators_supported() -> bool:

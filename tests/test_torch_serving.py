@@ -226,7 +226,9 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models.image.objectdetection.detector",
     "models.image.objectdetection.interop",
     "obs.export", "obs.__main__", "serving.fleet", "serving.http_frontend",
-    "shm.cli", "orca.learn.graphs")]
+    "shm.cli", "orca.learn.graphs",
+    "zouwu.model.tcmf", "feature", "feature.feature_set",
+    "orca.data.tfrecord")]
 
 
 def test_port_imports_no_jax():
