@@ -7,8 +7,10 @@ wrapper). The port's modules carry the flax module names as submodule
 names, so the mapping is by name, leaf by leaf:
 
 * Dense ``kernel (in, out)``    <-> Linear ``weight (out, in)`` (transposed)
-* Conv ``kernel (kh, kw, in, out)`` <-> ``weight (out, in, kh, kw)``, and
-  the 1-D Conv ``kernel (k, in, out)`` <-> ``Conv1d.weight (out, in, k)``
+* Conv ``kernel (kh, kw, in, out)`` <-> ``weight (out, in, kh, kw)``, the
+  1-D Conv ``kernel (k, in, out)`` <-> ``Conv1d.weight (out, in, k)`` and
+  the 3-D Conv ``kernel (kd, kh, kw, in, out)`` <-> ``Conv3d.weight (out,
+  in, kd, kh, kw)``
 * flax's LSTM cells (``OptimizedLSTMCell``) are Dense layers by name
   (``ii``/``if``/``ig``/``io`` without bias, ``hi``/``hf``/``hg``/``ho``
   with), so the Dense rule covers them (``zouwu/model/nets.py``).
@@ -83,10 +85,10 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 # flax batch_stats leaf <-> torch BatchNorm buffer
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _BUFFERS = {v: k for k, v in _STATS.items()}
-# kernel (flax) -> weight (torch) axis order, by rank: Dense, 1-D Conv,
-# 2-D Conv
-_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
-_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
+# kernel (flax) -> weight (torch) axis order, by rank: Dense, 1-D, 2-D and
+# 3-D Conv
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def _split_variables(variables: Mapping[str, Any]):
@@ -109,8 +111,8 @@ def flax_to_state_dict(variables: Mapping[str, Any]
         prefix = path + "." if path else ""
         if leaf_name == "kernel":
             if arr.ndim not in _TO_TORCH:
-                raise ValueError(f"{name}: only Dense (2-D) and Conv (3-D, "
-                                 f"4-D) kernels are bridged, got shape "
+                raise ValueError(f"{name}: only Dense (2-D) and Conv (3-D "
+                                 f"to 5-D) kernels are bridged, got shape "
                                  f"{arr.shape}")
             sd[prefix + "weight"] = torch.from_numpy(
                 np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))

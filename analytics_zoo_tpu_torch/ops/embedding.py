@@ -104,6 +104,16 @@ def onehot_matmul_backward(ids: torch.Tensor, g: torch.Tensor, rows: int,
     return (onehot.t() @ flat_g).to(dtype)
 
 
+def take_clamped(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with JAX's indexing rules for ``x[ids]``: a negative
+    id counts from the end, and an id outside the table reads the nearest
+    row (torch's indexing would raise). Its backward is autograd's
+    scatter-add, as JAX's."""
+    rows = table.shape[0]
+    ids = ids.long()
+    return table[torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)]
+
+
 def _use_onehot(table: torch.Tensor, grad_mode: str) -> bool:
     if grad_mode == "auto":
         grad_mode = knobs.get("ZOO_EMBED_GRAD_MODE")

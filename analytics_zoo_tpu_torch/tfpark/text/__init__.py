@@ -1,5 +1,6 @@
 from .estimator import (BERTClassifier, BERTNER, BERTSQuAD,
                         BERTBaseEstimator, bert_input_fn)
+from .keras import NER, POSTagger, IntentEntity
 
 __all__ = ["BERTBaseEstimator", "BERTClassifier", "BERTNER", "BERTSQuAD",
-           "bert_input_fn"]
+           "bert_input_fn", "NER", "POSTagger", "IntentEntity"]

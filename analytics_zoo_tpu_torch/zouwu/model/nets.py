@@ -14,14 +14,14 @@ infers it from the first batch), and carries flax's parameter names, so
   block changes the width, ``block_{i}.downsample``; ``head``.
 * ``MTNetLite``: ``CausalConv1D_0.Conv_0``, ``attn``, ``head``, ``ar``.
 
-An ``OptimizedLSTMCell`` keeps flax's per-gate parameters: input kernels
-``ii``/``if``/``ig``/``io`` without bias and hidden kernels ``hi``/``hf``/
-``hg``/``ho`` with one. Each forward concatenates them into the
-``i, f, g, o`` layout of ``torch.lstm`` (cuDNN's LSTM on the card: one
-fused call over the whole sequence, not a Python loop over time steps)
-with the hidden gates' biases as ``b_ih`` and a zero, untrained ``b_hh``.
-flax adds one bias per gate; training both of ``nn.LSTM``'s biases would
-double the bias's SGD step and change Adam's.
+An ``OptimizedLSTMCell`` is the Keras layers' ``LSTMCell``
+(``pipeline/api/keras/layers/recurrent.py``): flax's per-gate parameters
+(input kernels ``ii``/``if``/``ig``/``io`` without bias, hidden kernels
+``hi``/``hf``/``hg``/``ho`` with one), run as one ``torch.lstm`` call
+over the whole sequence (cuDNN's LSTM on the card) with the hidden
+gates' biases as ``b_ih`` and a zero, untrained ``b_hh``. flax adds one
+bias per gate; training both of ``nn.LSTM``'s biases would double the
+bias's SGD step and change Adam's.
 
 Dropout is the port's ``Dropout`` (it draws from the training engine's
 generator), placed where the JAX modules place it: after every LSTM layer
@@ -42,16 +42,15 @@ in``), hidden gate kernels orthogonal per gate ``(h, h)``, biases zero.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...models.common.initializers import lecun_normal_
+from ...pipeline.api.keras.layers.recurrent import LSTMCell
 from ...pipeline.api.keras.layers.self_attention import Dropout
-
-_GATES = ("i", "f", "g", "o")
 
 
 def _dense(in_features: int, out_features: int,
@@ -64,56 +63,9 @@ def _dense(in_features: int, out_features: int,
     return layer
 
 
-class OptimizedLSTMCell(nn.Module):
-    """flax's ``OptimizedLSTMCell`` parameters, run over a whole sequence
-    by one ``torch.lstm`` call. The carry is flax's ``(c, h)``."""
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        self.in_features = in_features
-        self.features = features
-        for g in _GATES:
-            self.add_module(f"i{g}", _dense(in_features, features,
-                                            bias=False))
-            hidden = nn.Linear(features, features)
-            nn.init.orthogonal_(hidden.weight)
-            nn.init.zeros_(hidden.bias)
-            self.add_module(f"h{g}", hidden)
-        self.register_buffer("zero_bias", torch.zeros(4 * features),
-                             persistent=False)
-
-    def fused_weights(self):
-        """``[w_ih (4h, in), w_hh (4h, h), b_ih (4h,), b_hh (4h,) = 0]``
-        in torch's gate order, which is flax's: views of one buffer, laid
-        out as cuDNN's weight space for one layer, so that cuDNN reads them
-        where they are instead of compacting them at each call."""
-        parts = ([getattr(self, f"i{g}").weight for g in _GATES]
-                 + [getattr(self, f"h{g}").weight for g in _GATES]
-                 + [getattr(self, f"h{g}").bias for g in _GATES]
-                 + [self.zero_bias])
-        flat = torch.cat([p.reshape(-1) for p in parts])
-        h4, n_in = 4 * self.features, self.in_features
-        w_ih, w_hh, b_ih, b_hh = flat.split(
-            [h4 * n_in, h4 * self.features, h4, h4])
-        return [w_ih.view(h4, n_in), w_hh.view(h4, self.features), b_ih,
-                b_hh]
-
-    def forward(self, x: torch.Tensor,
-                carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-        """``x (B, T, in)`` -> ``(outputs (B, T, h), (c, h))``; the carry
-        starts at zeros, as flax's ``nn.RNN`` starts it."""
-        if carry is None:
-            zeros = x.new_zeros(1, x.shape[0], self.features)
-            hx = (zeros, zeros)
-        else:
-            c, h = carry
-            hx = (h.unsqueeze(0), c.unsqueeze(0))
-        # train=True whenever a backward may follow (cuDNN's backward
-        # needs its training-mode forward); no dropout inside the call
-        out, h_n, c_n = torch.lstm(
-            x, hx, self.fused_weights(), True, 1, 0.0,
-            self.training or torch.is_grad_enabled(), False, True)
-        return out, (c_n[0], h_n[0])
+# flax's OptimizedLSTMCell holds LSTMCell's parameters and computes its
+# function: the Keras layers' cell serves both
+OptimizedLSTMCell = LSTMCell
 
 
 class LSTMNet(nn.Module):

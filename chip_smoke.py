@@ -197,6 +197,25 @@ Then, with TCMF (``zouwu/model/tcmf.py``) and the disk-tier FeatureSet
   card vs CPU and trains a ``from_tfrecords`` set (``featureset_disk_fit``;
   no flash kernel launches on either path).
 
+Then, with the model zoo's text, ranking, sequence, anomaly and
+recommendation models, it
+
+* trains the JAX ``TextClassifier``'s defaults (news20's widths: 20
+  classes, sequence 500, frozen 200-d GloVe vectors, cnn encoder 256,
+  batch 128, Adagrad) for 2 epochs over a seeded synthetic corpus of
+  19,997 documents in news20's layout through ``TextSet``, with the
+  holdout accuracy gate against the untrained control, a profiled epoch,
+  a save and reload, the trainable table and the lstm and gru encoders
+  (``text_classifier_news20``);
+* takes 3 steps of 12 text models on the card and on the CPU from the
+  same weights (``text_models_vs_cpu``);
+* trains KNRM at WikiQA's widths, Seq2seq on the reversal task (with
+  ``infer``'s tokens against the CPU's), NER and IntentEntity, and times
+  a Keras LSTM's loop against its cuDNN branch (``text_family_paths``);
+* trains Wide & Deep at MovieLens-1M's widths, SessionRecommender and
+  AnomalyDetector on the NYC-taxi series (``recsys_anomaly_paths``; no
+  flash kernel launches on any of the four paths).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -5509,10 +5528,10 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     way, in the same rounds as SDPA's backward
     (``covered_pair_profiled_ms``), so the pair and its library call are
     compared by one method. ``slice_launches``: each kernel's launches on
-    the ASHA slice's, the serving tier's, the fused-dispatch, TCMF's and
-    the disk-tier FeatureSet's paths (all 0 but the tiny BERT's fused fit,
-    whose count is the profiler's record of the kernels on the card, graph
-    replays included)."""
+    the ASHA slice's, the serving tier's, the fused-dispatch, TCMF's, the
+    disk-tier FeatureSet's and the text and recommendation models' paths
+    (all 0 but the tiny BERT's fused fit, whose count is the profiler's
+    record of the kernels on the card, graph replays included)."""
     from analytics_zoo_tpu_torch.ops import attention as at
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -6842,6 +6861,853 @@ def tcmf_featureset_paths(card):
     return launches
 
 
+# --- the model zoo's text, ranking, sequence and recommendation models ------
+# news20 at the JAX TextClassifier's defaults, which are news20's widths:
+# 20 classes, sequence 500, embed 200 (glove.6B.200d's width), the cnn
+# encoder at 256, batch 128, sparse categorical cross-entropy, Adagrad at lr
+# 0.01, word2idx(remove_topN=10, max_words_num=20000) (ids 1-20,000, a table
+# of 20,001 rows), random_split([0.8, 0.2]). news20 and the GloVe vectors
+# are not in the repository: the corpus is seeded and synthetic, in
+# TextSet.read's layout (20 category folders, news20's 19,997 documents of
+# 150-400 tokens). Words come from a Zipf vocabulary of 24,000 words;
+# each category over-weights 10 topic words of its own (a quarter of a
+# document's tokens), drawn from the vocabulary's middle ranks. The GloVe
+# file holds a seeded 200-d vector for every word.
+NEWS20 = dict(classes=20, docs=19997, vocab=24000, topic_words=10,
+              topic_share=0.25, min_len=150, max_len=400, seq=500, embed=200,
+              filters=256, batch=128, epochs=2, lr=0.01, remove_top=10,
+              max_words=20000, rnn_steps=16, seed=0)
+# The holdout accuracy gate: chance is 1/20, and the untrained model (the
+# control, the same model before fit) reads near it; a trained model that
+# found the topic words clears 0.5 by a wide margin.
+NEWS20_GATE = 0.5
+# Card vs CPU at small widths (vocab 500, sequence 50, embed 16, batch 32):
+# each model trains 3 steps through its user's fit on the card and on the
+# CPU from the same weights (dropout 0), f32 with TF32 off (matmuls and
+# cuDNN). Limits: every parameter leaf's largest difference relative to
+# its largest entry at 3e-3 (Adam's steps normalise each gradient entry,
+# so an entry whose gradient is near zero moves by the rounding of the
+# two devices' sums: cuDNN's LSTM sums its 50 steps of backpropagation in
+# another order than the CPU's, as zouwu_vs_cpu's TOL_STEP_GRAD says),
+# and the predictions' largest difference relative to their largest
+# magnitude at 4e-5. The control, the card with one more step (4), must
+# miss both: two CPU runs of 3 and 4 steps read 0.25-0.34 on the
+# parameters (biases start at zero and move by a third) and 1.4e-4
+# (Seq2seq LSTM) to 3.0e-2 (NER) on the predictions. Readings on an H100
+# 80GB HBM3 at 700 W over three runs: parameters 6.6e-6 (KNRM) to 3.0e-4
+# (TextClassifier's lstm encoder, 8.6e-5 to 3.0e-4 over the runs; the
+# Keras LSTM's cuDNN branch 1.2e-5 to 2.8e-4), predictions 1.2e-7 to
+# 7.7e-6; controls at least 0.20 (parameters) and 2.9e-4 (KNRM's
+# predictions).
+TEXT_VS_CPU = dict(vocab=500, seq=50, embed=16, batch=32, steps=3,
+                   classes=4, seed=0)
+TOL_TEXT_VS_CPU = {"param": 3e-3, "pred": 4e-5}
+# KNRM at WikiQA's widths (question 10, answer 40, embed 300, 21 kernels,
+# sigma 0.1, exact sigma 0.001) over seeded relation pairs; Seq2seq (LSTM,
+# hidden 128) on tests/test_models_zoo.py's reversal task with its gates;
+# NER at its defaults (word 100, char 30, LSTM 100, 9 tags) and
+# IntentEntity; a Keras LSTM (hard_sigmoid: the loop branch; sigmoid: one
+# cuDNN call) at width 128 over 50 steps.
+KNRM_WIKIQA = dict(q_len=10, a_len=40, embed=300, kernels=21, sigma=0.1,
+                   exact_sigma=0.001, vocab=5000, questions=512,
+                   answers_per_q=8, epochs=5, batch=64, lr=1e-2)
+# KNRM's gate: a relevant answer shares 8 words with its question, so the
+# exact-match kernel (mu 1.0) tells them apart once the ranker weighs it
+# up; the untrained ranker's sign is a draw (per-question MAP 0.16 or 1.0
+# on the CPU and the card). After training, MAP >= 0.8 over the training
+# questions (0.81 on the CPU at half the questions, 60 steps).
+KNRM_MAP_GATE = 0.8
+S2S_REVERSAL = dict(vocab=12, seq=4, rows=1500, hidden=128, embed=16,
+                    epochs=14, batch=128, infer_len=30)
+TAGGERS = dict(vocab=5000, chars=60, sent=30, word_len=12, tags=9,
+               intents=8, rows=1024, batch=64, steps=8)
+KERAS_LSTM = dict(width=128, steps=50, batch=64, features=32, reps=20)
+# Wide & Deep at MovieLens-1M's widths over bench_ncf's synthetic ratings
+# (262,144 of its rows; the users' gender, age and occupation and the
+# items' genres drawn from seed 0): wide base occupation (21) and gender
+# (3) with the age x gender cross (100), indicators genres (19) and gender
+# (3), embeddings userId 6,040 -> 64 and itemId 3,952 -> 64, continuous
+# age, hidden (40, 20, 10), 2 classes (rating >= 3), batch 1,024.
+WND = dict(rows=262144, users=6040, items=3952, batch=1024, epochs=1)
+SESSION = dict(items=3952, session=5, history=10, rows=65536, batch=256,
+               epochs=1)
+ANOMALY = dict(unroll=24, hidden=(8, 32, 15), dropout=0.2, epochs=5,
+               batch=256, anomalies=20)
+# AnomalyDetector card vs CPU (dropout off, 3 Adam steps at batch 256 of
+# the taxi windows), the control one more step: parameters as
+# TEXT_VS_CPU; predictions at 1e-4 of their largest magnitude, since the
+# head's outputs after 3 steps are small (reading 1.8e-5, control 0.47 on
+# an H100 80GB HBM3 at 700 W).
+TOL_ANOMALY_VS_CPU = {"param": TOL_TEXT_VS_CPU["param"], "pred": 1e-4}
+
+
+def _zipf_words(n, rng):
+    """``n`` distinct lower-case pseudo-words (tokenize and normalize keep
+    them as they are)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out, seen = [], set()
+    while len(out) < n:
+        for w in ("".join(letters[rng.randint(0, 26, rng.randint(4, 9))])
+                  for _ in range(n)):
+            if w not in seen:
+                seen.add(w)
+                out.append(w)
+    return out[:n]
+
+
+def news20_corpus(root, cfg=NEWS20):
+    """Writes the synthetic corpus in news20's layout under
+    ``root/news20`` and a GloVe-format file ``root/glove.txt``; returns
+    both paths and the token count."""
+    rng = np.random.RandomState(cfg["seed"])
+    words = np.array(_zipf_words(cfg["vocab"], rng))
+    cdf = np.cumsum(1.0 / np.arange(1, cfg["vocab"] + 1))
+    cdf /= cdf[-1]
+    lengths = rng.randint(cfg["min_len"], cfg["max_len"] + 1, cfg["docs"])
+    labels = np.arange(cfg["docs"]) % cfg["classes"]
+    topic = rng.rand(lengths.sum()) < cfg["topic_share"]
+    background = np.searchsorted(cdf, rng.rand(lengths.sum()))
+    mid = 200 + rng.permutation(cfg["classes"] * cfg["topic_words"])
+    topics = mid.reshape(cfg["classes"], cfg["topic_words"])
+    doc_of = np.repeat(np.arange(cfg["docs"]), lengths)
+    picks = topics[labels[doc_of], rng.randint(0, cfg["topic_words"],
+                                               lengths.sum())]
+    tokens = np.where(topic, picks, background).tolist()
+    words = words.tolist()
+    news = os.path.join(root, "news20")
+    for c in range(cfg["classes"]):
+        os.makedirs(os.path.join(news, f"group{c:02d}"))
+    ends = np.cumsum(lengths).tolist()
+    for d, (end, n) in enumerate(zip(ends, lengths.tolist())):
+        with open(os.path.join(news, f"group{labels[d]:02d}", str(d)),
+                  "w") as f:
+            f.write(" ".join([words[i] for i in tokens[end - n:end]])
+                    + ".\n")
+    vecs = rng.randn(cfg["vocab"], cfg["embed"]).astype(np.float32) * 0.4
+    glove = os.path.join(root, "glove.txt")
+    row = " ".join(["%.4f"] * cfg["embed"])
+    with open(glove, "w") as f:
+        f.writelines(w + " " + row % tuple(v) + "\n"
+                     for w, v in zip(words, vecs.tolist()))
+    return news, glove, int(lengths.sum())
+
+
+def _fit_profile(fit):
+    """``fit()`` under torch.profiler: device idle share over its wall
+    time and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    if not events:
+        fail("the profiler saw no device time in the profiled fit")
+    by_kernel = {}
+    for e in events:
+        tot, k = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (tot + e.time_range.elapsed_us() / 1e3, k + 1)
+    busy = _busy_ms(events)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_events": len(events),
+            "top_kernels": [{"name": n[:120], "ms": v[0], "launches": v[1]}
+                            for n, v in top]}
+
+
+def _steady_rate(stats, batch):
+    steps = [ms for s in stats for ms in s["profile"]["step_ms"]]
+    tail = steps[len(steps) // 4:] or steps
+    return batch / (statistics.median(tail) / 1e3), statistics.median(tail)
+
+
+def text_classifier_news20_phase(card, root, dev="cuda"):
+    """The main path: the synthetic news20 corpus through TextSet (read ->
+    tokenize -> normalize -> word2idx -> shape_sequence -> generate_sample,
+    each stage timed), random_split([0.8, 0.2]), then
+    ``TextClassifier(embedding_file=..., word_index=...)`` (the frozen
+    GloVe path, cnn encoder) fit for 2 epochs, evaluate and predict on the
+    holdout, with the accuracy gate against the untrained control; a
+    profiled epoch; save through the estimator and reload into a fresh
+    model with equal predictions; then the trainable-table variant
+    (vocab_size 20,001) and the lstm and gru encoders for 16 steps each."""
+    from analytics_zoo_tpu_torch.feature.text import TextSet
+    from analytics_zoo_tpu_torch.models import TextClassifier
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import Adagrad
+    cfg = NEWS20
+    stages = {}
+    t0 = time.perf_counter()
+    news, glove, n_tokens = news20_corpus(root)
+    stages["write_corpus_s"] = time.perf_counter() - t0
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        stages[name + "_s"] = time.perf_counter() - t
+        return out
+    ts = stage("read", lambda: TextSet.read(news))
+    stage("tokenize", ts.tokenize)
+    stage("normalize", ts.normalize)
+    stage("word2idx", lambda: ts.word2idx(remove_topN=cfg["remove_top"],
+                                          max_words_num=cfg["max_words"]))
+    stage("shape_sequence", lambda: ts.shape_sequence(cfg["seq"]))
+    stage("generate_sample", ts.generate_sample)
+    train, val = stage("random_split", lambda: ts.random_split([0.8, 0.2]))
+    (xtr, ytr), (xva, yva) = stage(
+        "to_arrays", lambda: (train.to_arrays(), val.to_arrays()))
+    word_index = ts.get_word_index()
+    if max(word_index.values()) != cfg["max_words"] or int(
+            xtr.max()) > cfg["max_words"]:
+        fail(f"word2idx gave {len(word_index)} ids, max "
+             f"{max(word_index.values())}")
+
+    def model(**kw):
+        m = TextClassifier(cfg["classes"], sequence_length=cfg["seq"],
+                           encoder_output_dim=cfg["filters"], device=dev,
+                           **kw)
+        m.compile(loss="sparse_categorical_crossentropy",
+                  optimizer=Adagrad(learningrate=cfg["lr"]),
+                  metrics=["accuracy"])
+        return m
+    tc = stage("glove_model", lambda: model(embedding_file=glove,
+                                            word_index=word_index))
+    table = tc.module.embedding.detach().clone()
+    control = tc.evaluate({"x": xva, "y": yva}, batch_size=cfg["batch"],
+                          verbose=False)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    stats = tc.fit({"x": xtr, "y": ytr}, epochs=cfg["epochs"],
+                   batch_size=cfg["batch"], profile=True, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    steady, step_ms = _steady_rate(stats, cfg["batch"])
+    frozen = bool(torch.equal(tc.module.embedding.detach(), table))
+    ev = tc.evaluate({"x": xva, "y": yva}, batch_size=cfg["batch"],
+                     verbose=False)
+    tc.predict(xva[:cfg["batch"]], batch_size=cfg["batch"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs = tc.predict(xva, batch_size=1024)
+    predict_s = time.perf_counter() - t
+    prof = _fit_profile(lambda: tc.fit({"x": xtr, "y": ytr}, epochs=1,
+                                       batch_size=cfg["batch"],
+                                       verbose=False))
+    path = os.path.join(root, "news20_tc.pt")
+    tc.estimator.save(path)
+    again = model(embedding_matrix=tc.module.embedding.detach().cpu()
+                  .numpy())
+    again.estimator.load(path)
+    reload_diff = float(np.abs(again.predict(xva[:512], batch_size=256)
+                               - tc.predict(xva[:512], batch_size=256)).max())
+    del again
+    variants = {}
+    for name, kw in (("trainable_table", dict(vocab_size=cfg["max_words"]
+                                              + 1, embed_dim=cfg["embed"])),
+                     ("lstm", dict(embedding_matrix=table.cpu().numpy(),
+                                   encoder="lstm")),
+                     ("gru", dict(embedding_matrix=table.cpu().numpy(),
+                                  encoder="gru"))):
+        m = model(**kw)
+        t = time.perf_counter()
+        s = m.fit({"x": xtr, "y": ytr}, epochs=1, batch_size=cfg["batch"],
+                  steps_per_epoch=cfg["rnn_steps"], profile=True,
+                  verbose=False)
+        torch.cuda.synchronize()
+        variants[name] = {"steps": cfg["rnn_steps"],
+                          "fit_s": time.perf_counter() - t,
+                          "loss": s[-1]["train_loss"],
+                          "step_ms_median": statistics.median(
+                              s[-1]["profile"]["step_ms"][2:] or
+                              s[-1]["profile"]["step_ms"])}
+        if not math.isfinite(s[-1]["train_loss"]):
+            fail(f"news20 {name} variant: loss {s[-1]['train_loss']}")
+        del m
+    acc, acc0 = float(ev["accuracy"]), float(control["accuracy"])
+    ok = (acc > NEWS20_GATE and acc0 <= NEWS20_GATE and frozen
+          and reload_diff <= 1e-6 and probs.shape == (len(xva),
+                                                     cfg["classes"])
+          and bool(np.isfinite(probs).all()))
+    samples = len(xtr) * cfg["epochs"]
+    emit({"phase": "text_classifier_news20", "config": cfg,
+          "docs": len(ts.features), "tokens": n_tokens,
+          "train_rows": len(xtr), "holdout_rows": len(xva),
+          "word_index": len(word_index), "textset_stages_s": stages,
+          "fit_s": fit_s, "fit_samples_per_s": samples / fit_s,
+          "steady_samples_per_s": steady, "steady_step_ms": step_ms,
+          "epoch_losses": [s["train_loss"] for s in stats],
+          "fuse": tc.estimator.fuse, "peak_memory_bytes": peak,
+          "peak_above_held_bytes": peak - held,
+          "holdout_accuracy": acc, "control_untrained_accuracy": acc0,
+          "gate": NEWS20_GATE, "frozen_table_bit_equal": frozen,
+          "predict_rows_per_s": len(xva) / predict_s,
+          "profiled_epoch": prof, "reload_max_abs_diff": reload_diff,
+          "variants": variants, "ok": ok, "card": card})
+    if not ok:
+        fail(f"news20 TextClassifier: accuracy {acc} (control {acc0}, "
+             f"gate {NEWS20_GATE}), frozen {frozen}, reload {reload_diff}")
+
+
+def _text_cases():
+    """name -> (build(dev) -> model, its module, fit(model, steps),
+    predict(model), sample input for lazy widths), at TEXT_VS_CPU's
+    widths."""
+    from analytics_zoo_tpu_torch.models import KNRM, Seq2Seq, TextClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.tfpark.text import NER, IntentEntity
+    c = TEXT_VS_CPU
+    rng = np.random.RandomState(c["seed"])
+    n = c["batch"] * (c["steps"] + 2)
+    ids = rng.randint(1, c["vocab"], (n, c["seq"])).astype(np.int32)
+    labels = rng.randint(0, c["classes"], n).astype(np.int32)
+    chars = rng.randint(1, 40, (n, c["seq"], 6)).astype(np.int32)
+    tags = (ids % 5 + 1).astype(np.int32)
+    src, tgt = ids[:, :12], ids[:, 12:22] % 60
+    rel = (rng.rand(n, 1) > 0.5).astype(np.float32)
+    fit_kw = dict(batch_size=c["batch"], shuffle=False, verbose=False)
+
+    def zoo(model, data):
+        def fit(m, steps):
+            m.fit(data, epochs=1, steps_per_epoch=steps, **fit_kw)
+        return model, (lambda m: m.module), fit
+
+    def tc(encoder):
+        def build(dev):
+            m = TextClassifier(c["classes"], vocab_size=c["vocab"],
+                               embed_dim=c["embed"], sequence_length=c["seq"],
+                               encoder=encoder, encoder_output_dim=24,
+                               device=dev)
+            m.module.dropout.p = 0.0
+            return m.compile(loss="sparse_categorical_crossentropy",
+                             optimizer="adam")
+        return zoo(build, {"x": ids, "y": labels})
+
+    def keras(layers):
+        def build(dev):
+            return Sequential(layers(), device=dev).compile(
+                "adam", "sparse_categorical_crossentropy")
+
+        def fit(m, steps):
+            m.fit(ids, labels, nb_epoch=1, steps_per_epoch=steps, **fit_kw)
+        return build, (lambda m: m.to_module()), fit
+
+    def emb():
+        return L.Embedding(c["vocab"], c["embed"], input_shape=(c["seq"],))
+
+    def knrm(dev):
+        m = KNRM(10, 40, vocab_size=c["vocab"], embed_size=c["embed"],
+                 target_mode="classification", device=dev)
+        return m.compile(loss="binary_crossentropy", optimizer="adam")
+
+    def s2s(kind):
+        def build(dev):
+            m = Seq2Seq(kind, 1, 32, c["vocab"], 60, c["embed"], device=dev)
+            return m.compile(loss="sparse_categorical_crossentropy",
+                             optimizer="adam")
+        return zoo(build, {"x": (src, tgt), "y": tgt})
+
+    def tagger(cls, **kw):
+        def build(dev):
+            return cls(vocab_size=c["vocab"], lstm_units=24, dropout=0.0,
+                       word_emb_dim=c["embed"], device=dev, **kw)
+        return build, (lambda m: m.module)
+
+    def ner_fit(m, steps):
+        m.fit((ids, chars), tags, epochs=1, steps_per_epoch=steps, **fit_kw)
+
+    def ie_fit(m, steps):
+        m.fit(ids, labels % 3, tags, epochs=1, steps_per_epoch=steps,
+              **fit_kw)
+    cases = {
+        "text_classifier_cnn": tc("cnn") + (lambda m: m.predict(ids[-64:]),
+                                            None),
+        "text_classifier_lstm": tc("lstm") + (lambda m: m.predict(
+            ids[-64:]), None),
+        "text_classifier_gru": tc("gru") + (lambda m: m.predict(ids[-64:]),
+                                            None),
+        "keras_text_cnn": keras(lambda: [
+            emb(), L.Convolution1D(32, 5, activation="relu"),
+            L.GlobalMaxPooling1D(),
+            L.Dense(c["classes"], activation="softmax")])
+        + (lambda m: m.predict(ids[-64:]), ids[:1]),
+        "keras_lstm_hard_sigmoid": keras(lambda: [
+            emb(), L.LSTM(24), L.Dense(c["classes"], activation="softmax")])
+        + (lambda m: m.predict(ids[-64:]), ids[:1]),
+        "keras_lstm_sigmoid": keras(lambda: [
+            emb(), L.LSTM(24, inner_activation="sigmoid"),
+            L.Dense(c["classes"], activation="softmax")])
+        + (lambda m: m.predict(ids[-64:]), ids[:1]),
+        "keras_bidirectional_gru": keras(lambda: [
+            emb(), L.Bidirectional(L.GRU(16)),
+            L.Dense(c["classes"], activation="softmax")])
+        + (lambda m: m.predict(ids[-64:]), ids[:1]),
+        "knrm": zoo(knrm, {"x": ids, "y": rel})
+        + (lambda m: m.predict(ids[-64:]), None),
+        "seq2seq_lstm": s2s("lstm") + (lambda m: m.predict(
+            (src[-64:], tgt[-64:])), None),
+        "seq2seq_gru": s2s("gru") + (lambda m: m.predict(
+            (src[-64:], tgt[-64:])), None),
+        "ner": tagger(NER, num_tags=6, char_vocab_size=40, char_emb_dim=8)
+        + (ner_fit, lambda m: m.estimator.predict(
+            {"x": (ids[-64:], chars[-64:])}, batch_size=32),
+           (ids[:1], chars[:1])),
+        "intent_entity": tagger(IntentEntity, num_intents=3,
+                                num_entities=6)
+        + (ie_fit, lambda m: _intent_entity_logits(m.estimator.predict(
+            ids[-64:], batch_size=32)), (ids[:1],)),
+    }
+    return cases
+
+
+def _intent_entity_logits(packed):
+    """IntentEntity's intent and slot logits out of its packed output,
+    without the -1e9 padding (3 intents, 6 entities)."""
+    return np.concatenate([packed[:, 0, :3].ravel(),
+                           packed[:, 1:, :6].ravel()])
+
+
+def _materialize(module, sample):
+    if sample is not None:
+        module.eval()
+        with torch.no_grad():
+            module(*(torch.from_numpy(a) for a in (
+                sample if isinstance(sample, tuple) else (sample,))))
+
+
+def _text_run(case, dev, state, steps):
+    """``steps`` steps of a ``_text_cases`` case on ``dev`` from ``state``
+    (None: the model's own draw): the start and end parameters and the
+    predictions, on the CPU."""
+    build, module_of, fit, predict, sample = case
+    m = build(dev)
+    module = module_of(m)
+    if state is None:
+        _materialize(module, sample)
+    else:
+        module.load_state_dict(state)
+    start = {k: v.detach().cpu().clone()
+             for k, v in module.state_dict().items()}
+    fit(m, steps)
+    params = {k: v.detach().cpu().clone()
+              for k, v in module_of(m).state_dict().items()}
+    return start, params, np.asarray(predict(m))
+
+
+def _param_rels(got, want):
+    """Each leaf's largest difference relative to its largest entry."""
+    return {k: float((got[k].double() - want[k].double()).abs().max())
+            / max(float(want[k].double().abs().max()), 1e-30) for k in want}
+
+
+def _param_rel(got, want):
+    return max(_param_rels(got, want).values())
+
+
+def text_models_vs_cpu_phase(card, dev="cuda"):
+    """Each text model (TextClassifier's three encoders, a Keras text CNN,
+    a Keras LSTM on its loop and its cuDNN branch, a Bidirectional GRU,
+    KNRM, Seq2seq LSTM and GRU, NER and IntentEntity) trains 3 steps
+    through its user's fit on the card and on the CPU from the same
+    weights; parameters and predictions held to TOL_TEXT_VS_CPU, the card
+    with one more step the control that must miss."""
+    c = TEXT_VS_CPU
+    result, failed = {}, []
+    t0 = time.perf_counter()
+    for name, case in _text_cases().items():
+        start, cpu_params, cpu_pred = _text_run(case, "cpu", None,
+                                                c["steps"])
+        sd = {k: v.clone() for k, v in start.items()}
+        _, card_params, card_pred = _text_run(case, dev, sd, c["steps"])
+        _, ctl_params, ctl_pred = _text_run(case, dev, sd, c["steps"] + 1)
+
+        def readings(params, pred):
+            scale = max(float(np.abs(cpu_pred).max()), 1e-30)
+            return {"param": _param_rel(params, cpu_params),
+                    "pred": float(np.abs(pred - cpu_pred).max()) / scale}
+        got, ctl = readings(card_params, card_pred), readings(ctl_params,
+                                                              ctl_pred)
+        ok = (all(got[k] <= TOL_TEXT_VS_CPU[k] for k in got)
+              and all(ctl[k] > TOL_TEXT_VS_CPU[k] for k in ctl)
+              and bool(np.isfinite(card_pred).all()))
+        rels = _param_rels(card_params, cpu_params)
+        result[name] = {"readings": got, "control_readings": ctl,
+                        "worst_leaf": max(rels, key=rels.get), "ok": ok}
+        if not ok:
+            failed.append(name)
+    emit({"phase": "text_models_vs_cpu", "widths": c,
+          "limits": TOL_TEXT_VS_CPU,
+          "control": "the card with one more step", **result,
+          "run_s": time.perf_counter() - t0, "card": card})
+    if failed:
+        fail(f"text models on the card disagree with the CPU: {failed}")
+
+
+def _wikiqa_pairs(cfg, rng):
+    """Seeded question/answer corpora and relations in WikiQA's shape:
+    each question has ``answers_per_q`` candidates, one or two relevant,
+    and a relevant answer shares words with its question."""
+    from analytics_zoo_tpu_torch.feature.text import TextFeature, TextSet
+    v = cfg["vocab"]
+    qs, ans, rels = [], [], []
+    for q in range(cfg["questions"]):
+        qw = rng.randint(1, v, cfg["q_len"])
+        qs.append(TextFeature(" ".join(f"w{i}" for i in qw), uri=f"q{q}"))
+        for a in range(cfg["answers_per_q"]):
+            aw = rng.randint(1, v, cfg["a_len"])
+            label = int(a < 1 + q % 2)
+            if label:
+                aw[rng.choice(cfg["a_len"], 8, replace=False)] = \
+                    rng.choice(qw, 8)
+            ans.append(TextFeature(" ".join(f"w{i}" for i in aw),
+                                   uri=f"q{q}a{a}"))
+            rels.append((f"q{q}", f"q{q}a{a}", label))
+    c1, c2 = TextSet(qs), TextSet(ans)
+    index = {f"w{i}": i for i in range(1, v)}
+    for ts, n in ((c1, cfg["q_len"]), (c2, cfg["a_len"])):
+        ts.tokenize().normalize().word2idx(existing_map=index)
+        ts.shape_sequence(n)
+    return c1, c2, rels
+
+
+def text_family_paths_phase(card, dev="cuda"):
+    """KNRM at WikiQA's widths over TextSet.from_relation_pairs, with
+    evaluate_ndcg (k 3, 5) and evaluate_map; Seq2seq (LSTM, hidden 128) on
+    the reversal task with tests/test_models_zoo.py's gates, then infer
+    (max_seq_len 30) with tokens equal to the port's CPU tokens from the
+    same weights; NER at its defaults and IntentEntity a few steps each;
+    a Keras LSTM at width 128 over 50 steps, its hard_sigmoid loop's step
+    time beside the sigmoid (cuDNN) branch's."""
+    from analytics_zoo_tpu_torch.feature.text import TextSet
+    from analytics_zoo_tpu_torch.models import KNRM, Seq2Seq
+    from analytics_zoo_tpu_torch.models.common.ranker import (
+        mean_average_precision, ndcg)
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.tfpark.text import NER, IntentEntity
+    out = {}
+    rng = np.random.RandomState(5)
+    # KNRM
+    k = KNRM_WIKIQA
+    t0 = time.perf_counter()
+    c1, c2, rels = _wikiqa_pairs(k, rng)
+    pairs = TextSet.from_relation_pairs(rels, c1, c2)
+    x = np.stack([f.indices for f in pairs.features])
+    # a pair row holds [q, pos] then [q, neg]: each half is one scored row
+    half = k["q_len"] + k["a_len"]
+    xs = np.concatenate([x[:, :half], x[:, half:]])
+    ys = np.concatenate([np.ones((len(x), 1)), np.zeros((len(x), 1))]
+                        ).astype(np.float32)
+    knrm = KNRM(k["q_len"], k["a_len"], vocab_size=k["vocab"],
+                embed_size=k["embed"], kernel_num=k["kernels"],
+                sigma=k["sigma"], exact_sigma=k["exact_sigma"],
+                target_mode="classification", device=dev)
+    knrm.compile(loss="binary_crossentropy", optimizer=Adam(lr=k["lr"]))
+    lists = TextSet.from_relation_lists(rels, c1, c2).features
+    lx = np.concatenate([f.indices for f in lists])
+    ly = np.concatenate([f.label for f in lists]).astype(np.float32)
+
+    def rank_metrics():
+        """Per-question NDCG and MAP, averaged over the questions."""
+        by_q = len(lists[0].label)
+        scores = knrm.predict(lx, batch_size=1024).reshape(-1, by_q)
+        lab = ly.reshape(-1, by_q)
+        return {"ndcg@3": float(np.mean([ndcg(a, b, 3)
+                                         for a, b in zip(lab, scores)])),
+                "ndcg@5": float(np.mean([ndcg(a, b, 5)
+                                         for a, b in zip(lab, scores)])),
+                "map": float(np.mean([mean_average_precision(a, b)
+                                      for a, b in zip(lab, scores)]))}
+    before = rank_metrics()
+    stats = knrm.fit({"x": xs, "y": ys}, epochs=k["epochs"],
+                     batch_size=k["batch"], verbose=False)
+    after = rank_metrics()
+    flat = {"evaluate_ndcg@3": knrm.evaluate_ndcg(lx, ly, 3),
+            "evaluate_ndcg@5": knrm.evaluate_ndcg(lx, ly, 5),
+            "evaluate_map": knrm.evaluate_map(lx, ly)}
+    out["knrm"] = {"widths": k, "pairs": len(x),
+                   "epoch_losses": [s["train_loss"] for s in stats],
+                   "per_question_before": before,
+                   "per_question_after": after, **flat,
+                   "map_gate": KNRM_MAP_GATE,
+                   "run_s": time.perf_counter() - t0}
+    if not (all(math.isfinite(v) for v in flat.values())
+            and after["map"] >= KNRM_MAP_GATE
+            and stats[-1]["train_loss"] < stats[0]["train_loss"]):
+        fail(f"KNRM on WikiQA's widths did not learn: {out['knrm']}")
+    del knrm
+    # Seq2seq on the reversal task
+    s = S2S_REVERSAL
+    t0 = time.perf_counter()
+    r = np.random.RandomState(0)
+    src = r.randint(2, s["vocab"], (s["rows"], s["seq"])).astype(np.int32)
+    reply = src[:, ::-1].copy()
+    tgt_in = np.concatenate([np.full((len(src), 1), 1, np.int32),
+                             reply[:, :-1]], 1)
+    s2s = Seq2Seq("lstm", 1, s["hidden"], s["vocab"], s["vocab"],
+                  s["embed"], device=dev)
+    s2s.compile(loss="sparse_categorical_crossentropy", optimizer="adam")
+    stats = s2s.fit({"x": (src, tgt_in), "y": reply}, epochs=s["epochs"],
+                    batch_size=s["batch"], verbose=False)
+    preds = s2s.predict((src[:256], tgt_in[:256]))
+    acc = float((np.argmax(preds, -1) == reply[:256]).mean())
+    ratio = stats[-1]["train_loss"] / stats[0]["train_loss"]
+    tokens = s2s.infer(src[:64], start_sign=1, max_seq_len=s["infer_len"])
+    cpu = Seq2Seq("lstm", 1, s["hidden"], s["vocab"], s["vocab"],
+                  s["embed"], device="cpu")
+    cpu.module.load_state_dict({n: t.cpu() for n, t in
+                                s2s.module.state_dict().items()})
+    cpu_tokens = cpu.infer(src[:64], start_sign=1,
+                           max_seq_len=s["infer_len"])
+    same = tokens.tolist() == cpu_tokens.tolist()
+    out["seq2seq"] = {"widths": s, "loss_ratio": ratio,
+                      "teacher_forced_accuracy": acc,
+                      "gates": {"loss_ratio": 0.7,
+                                "accuracy": 3.0 / (s["vocab"] - 2)},
+                      "infer_tokens_equal_cpu": same,
+                      "infer_shape": list(tokens.shape),
+                      "run_s": time.perf_counter() - t0}
+    if not (ratio < 0.7 and acc > 3.0 / (s["vocab"] - 2) and same):
+        fail(f"Seq2seq reversal on the card: {out['seq2seq']}")
+    del s2s, cpu
+    # taggers at their defaults
+    g = TAGGERS
+    t0 = time.perf_counter()
+    words = r.randint(1, g["vocab"], (g["rows"], g["sent"])).astype(np.int32)
+    chars = r.randint(1, g["chars"], (g["rows"], g["sent"], g["word_len"])
+                      ).astype(np.int32)
+    tags = (words % (g["tags"] - 1) + 1).astype(np.int32)
+    ner = NER(num_tags=g["tags"], vocab_size=g["vocab"],
+              char_vocab_size=g["chars"], device=dev)
+    ner_stats = ner.fit((words, chars), tags, batch_size=g["batch"],
+                        epochs=1, steps_per_epoch=g["steps"], profile=True,
+                        verbose=False)
+    ner_pred = ner.estimator.predict({"x": (words[:128], chars[:128])},
+                                     batch_size=64)
+    ie = IntentEntity(num_intents=g["intents"], num_entities=g["tags"],
+                      vocab_size=g["vocab"], device=dev)
+    ie_stats = ie.fit(words, words[:, 0] % g["intents"], tags,
+                      batch_size=g["batch"], epochs=1,
+                      steps_per_epoch=g["steps"], profile=True,
+                      verbose=False)
+    intent, slots = ie.predict(words[:128], batch_size=64)
+    out["taggers"] = {
+        "widths": g, "ner_loss": ner_stats[-1]["train_loss"],
+        "ner_step_ms": statistics.median(ner_stats[-1]["profile"]["step_ms"]),
+        "intent_entity_loss": ie_stats[-1]["train_loss"],
+        "intent_entity_step_ms": statistics.median(
+            ie_stats[-1]["profile"]["step_ms"]),
+        "run_s": time.perf_counter() - t0}
+    if not (np.isfinite(ner_pred).all() and ner_pred.shape == (
+            128, g["sent"], g["tags"]) and intent.shape == (128,)
+            and slots.shape == (128, g["sent"])
+            and math.isfinite(ie_stats[-1]["train_loss"])):
+        fail(f"the taggers on the card: {out['taggers']}")
+    del ner, ie
+    # the Keras LSTM's loop branch against its cuDNN branch
+    kl = KERAS_LSTM
+    xk = torch.randn(kl["batch"], kl["steps"], kl["features"], device=dev)
+    times = {}
+    for gate in ("hard_sigmoid", "sigmoid"):
+        net = Sequential([L.LSTM(kl["width"], inner_activation=gate,
+                                 input_shape=(kl["steps"],
+                                              kl["features"]))],
+                         device=dev)
+        module = net.to_module().to(dev)
+
+        def step():
+            module.zero_grad(set_to_none=True)
+            module(xk).sum().backward()
+        for _ in range(3):
+            step()
+        times[gate] = _span_ms(_eager(step, kl["reps"]), kl["reps"])
+    out["keras_lstm_step_ms"] = {"loop_hard_sigmoid": times["hard_sigmoid"],
+                                 "cudnn_sigmoid": times["sigmoid"],
+                                 "widths": kl,
+                                 "timing": "CUDA events over 20 eager "
+                                           "forward+backward steps"}
+    emit({"phase": "text_family_paths", **out, "card": card})
+
+
+def _wnd_frame(cfg, rng):
+    """MovieLens-1M-shaped rows in Wide & Deep's layout from bench_ncf's
+    synthetic (user, item) pairs: users' gender, age and occupation and
+    items' genres drawn once; label rating >= 3."""
+    pairs, ratings = _ncf_data(cfg["rows"])
+    users, items = pairs[:, 0], pairs[:, 1] % cfg["items"]
+    gender = rng.randint(0, 3, cfg["users"] + 1)
+    age = rng.randint(0, 7, cfg["users"] + 1)
+    occ = rng.randint(0, 21, cfg["users"] + 1)
+    genres = (rng.rand(cfg["items"] + 1, 19) < 0.12).astype(np.float32)
+    n = len(users)
+    eye = lambda d, i: np.eye(d, dtype=np.float32)[i]
+    g, a = gender[users], age[users]
+    cross = (a * 3 + g) % 100
+    x = np.concatenate([
+        eye(21, occ[users]), eye(3, g), eye(100, cross),      # wide
+        genres[items], eye(3, g),                             # indicators
+        np.stack([users, items], 1).astype(np.float32),       # embed ids
+        (a[:, None] / 6.0).astype(np.float32)], 1)           # continuous
+    y = (ratings >= 3).astype(np.int32)
+    if x.shape != (n, 124 + 22 + 2 + 1):
+        fail(f"Wide & Deep rows have shape {x.shape}")
+    return x, y
+
+
+def recsys_anomaly_paths_phase(card, dev="cuda"):
+    """Wide & Deep at MovieLens-1M's widths (1 epoch at batch 1,024, then
+    recommend_for_user), SessionRecommender (item_count 3,952, sessions of
+    5, history 10) and AnomalyDetector over the NYC-taxi series (unroll
+    24, hidden (8, 32, 15), dropout 0.2, fit then detect_anomalies), with
+    the detector's card-vs-CPU steps (dropout off)."""
+    from analytics_zoo_tpu_torch.models import (AnomalyDetector,
+                                                ColumnFeatureInfo,
+                                                SessionRecommender,
+                                                WideAndDeep)
+    out = {}
+    rng = np.random.RandomState(0)
+    w = WND
+    t0 = time.perf_counter()
+    x, y = _wnd_frame(w, rng)
+    info = ColumnFeatureInfo(
+        wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+        wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+        indicator_cols=["genres", "gender"], indicator_dims=[19, 3],
+        embed_cols=["userId", "itemId"], embed_in_dims=[w["users"],
+                                                        w["items"]],
+        embed_out_dims=[64, 64], continuous_cols=["age"])
+    wnd = WideAndDeep(2, info, hidden_layers=(40, 20, 10), device=dev)
+    wnd.compile(loss="sparse_categorical_crossentropy", optimizer="adam",
+                metrics=["accuracy"])
+    t = time.perf_counter()
+    stats = wnd.fit({"x": x, "y": y}, epochs=w["epochs"],
+                    batch_size=w["batch"], profile=True, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    steady, step_ms = _steady_rate(stats, w["batch"])
+    recs = wnd.recommend_for_user(x[:2000], max_items=5)
+    out["wide_and_deep"] = {
+        "rows": len(x), "feature_width": info.feature_width(),
+        "fit_s": fit_s, "fit_samples_per_s": len(x) * w["epochs"] / fit_s,
+        "steady_samples_per_s": steady, "steady_step_ms": step_ms,
+        "fuse": wnd.estimator.fuse, "loss": stats[-1]["train_loss"],
+        "users_recommended": len(recs), "run_s": time.perf_counter() - t0}
+    if not (math.isfinite(stats[-1]["train_loss"]) and recs and all(
+            0 < len(v) <= 5 for v in recs.values())):
+        fail(f"Wide & Deep on the card: {out['wide_and_deep']}")
+    del wnd, x, y
+    # SessionRecommender with history
+    s = SESSION
+    t0 = time.perf_counter()
+    seq = rng.randint(1, s["items"] + 1, (s["rows"], s["session"] + 1))
+    hist = rng.randint(1, s["items"] + 1, (s["rows"], s["history"]))
+    sx = np.concatenate([seq[:, :-1], hist], 1).astype(np.int32)
+    sy = seq[:, -1].astype(np.int32)
+    sr = SessionRecommender(s["items"], item_embed=100,
+                            rnn_hidden_layers=(40, 20),
+                            session_length=s["session"],
+                            include_history=True,
+                            mlp_hidden_layers=(40, 20),
+                            history_length=s["history"], device=dev)
+    sr.compile(loss="sparse_categorical_crossentropy", optimizer="adam")
+    stats = sr.fit({"x": sx, "y": sy}, epochs=s["epochs"],
+                   batch_size=s["batch"], profile=True, verbose=False)
+    recs = sr.recommend_for_session(sx[:64], max_items=5)
+    out["session_recommender"] = {
+        "steps": len(stats[-1]["profile"]["step_ms"]),
+        "loss": stats[-1]["train_loss"],
+        "steady_step_ms": _steady_rate(stats, s["batch"])[1],
+        "fuse": sr.estimator.fuse, "run_s": time.perf_counter() - t0}
+    if not (math.isfinite(stats[-1]["train_loss"]) and len(recs) == 64
+            and all(len(r) == 5 for r in recs)):
+        fail(f"SessionRecommender on the card: {out['session_recommender']}")
+    del sr
+    # AnomalyDetector over the NYC-taxi series
+    a = ANOMALY
+    t0 = time.perf_counter()
+    values = np.loadtxt(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests", "resources",
+        "nyc_taxi_subset.csv"), delimiter=",", skiprows=1, usecols=1,
+        dtype=np.float32)
+    series = ((values - values.mean()) / values.std()).reshape(-1, 1)
+    ax, ay = AnomalyDetector.unroll(series, a["unroll"])
+    drops = (a["dropout"],) * len(a["hidden"])
+    ad = AnomalyDetector((a["unroll"], 1), a["hidden"], drops, device=dev)
+    ad.compile(loss="mean_squared_error", optimizer="adam")
+    stats = ad.fit({"x": ax, "y": ay}, epochs=a["epochs"],
+                   batch_size=a["batch"], verbose=False)
+    pred = ad.predict(ax, batch_size=1024)
+    anomalies = AnomalyDetector.detect_anomalies(ay, pred, a["anomalies"])
+
+    def steps(dev, state, n):
+        m = AnomalyDetector((a["unroll"], 1), a["hidden"],
+                            (0.0,) * len(a["hidden"]), device=dev)
+        if state is not None:
+            m.module.load_state_dict(state)
+        m.compile(loss="mean_squared_error", optimizer="adam")
+        start = {k: v.detach().cpu().clone()
+                 for k, v in m.module.state_dict().items()}
+        m.fit({"x": ax, "y": ay}, epochs=1, batch_size=a["batch"],
+              steps_per_epoch=n, shuffle=False, verbose=False)
+        return start, {k: v.detach().cpu().clone() for k, v in
+                       m.module.state_dict().items()}, m.predict(ax[:512])
+    start, cpu_params, cpu_pred = steps("cpu", None, 3)
+    _, card_params, card_pred = steps(dev, start, 3)
+    _, ctl_params, ctl_pred = steps(dev, start, 4)
+    scale = max(float(np.abs(cpu_pred).max()), 1e-30)
+    got = {"param": _param_rel(card_params, cpu_params),
+           "pred": float(np.abs(card_pred - cpu_pred).max()) / scale}
+    ctl = {"param": _param_rel(ctl_params, cpu_params),
+           "pred": float(np.abs(ctl_pred - cpu_pred).max()) / scale}
+    out["anomaly_detector"] = {
+        "windows": len(ax), "epoch_losses": [s_["train_loss"]
+                                             for s_ in stats],
+        "anomalies": len(anomalies), "top_anomaly": anomalies[0] if
+        anomalies else None, "vs_cpu": got, "vs_cpu_control": ctl,
+        "limits": TOL_ANOMALY_VS_CPU, "run_s": time.perf_counter() - t0}
+    if not (len(anomalies) >= a["anomalies"] and all(
+            got[k] <= TOL_ANOMALY_VS_CPU[k] for k in got) and all(
+            ctl[k] > TOL_ANOMALY_VS_CPU[k] for k in ctl)):
+        fail(f"AnomalyDetector on the card: {out['anomaly_detector']}")
+    emit({"phase": "recsys_anomaly_paths", **out, "card": card})
+
+
+def text_zoo_paths(card):
+    """The text, ranking, sequence and recommendation models' four phases,
+    each path driven with the flash kernels' counts at 0 (none of them
+    reaches one). Returns the counts by path."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    kernels = [getattr(at, name) for name in FLASH_KERNELS]
+    launches = {}
+    root = tempfile.mkdtemp(prefix="news20-")
+    try:
+        for name, run in (
+                ("text_classifier_news20",
+                 lambda: text_classifier_news20_phase(card, root)),
+                ("text_models_vs_cpu", lambda: text_models_vs_cpu_phase(
+                    card)),
+                ("text_family_paths", lambda: text_family_paths_phase(card)),
+                ("recsys_anomaly_paths",
+                 lambda: recsys_anomaly_paths_phase(card))):
+            for fn in kernels:
+                fn.launches = 0
+            run()
+            launches[name] = {fn.__name__: fn.launches for fn in kernels}
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(n for counts in launches.values() for n in counts.values()):
+        fail(f"a flash kernel launched on a text or recommendation path: "
+             f"{launches}")
+    return launches
+
+
 def main():
     card = device_phase()
     import analytics_zoo_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -6943,10 +7809,11 @@ def main():
     fleet_launches = serving_tier_paths(card)
     fused_launches = fused_dispatch_phase(card)
     tcmf_fs_launches = tcmf_featureset_paths(card)
+    text_launches = text_zoo_paths(card)
     kernels_line(errs, bwd_errs, serve_launches, train_launches,
                  fraud_launches, autots_launches, od_launches,
                  {**slice_launches, **fleet_launches, **fused_launches,
-                  **tcmf_fs_launches})
+                  **tcmf_fs_launches, **text_launches})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

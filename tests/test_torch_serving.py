@@ -228,7 +228,18 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "obs.export", "obs.__main__", "serving.fleet", "serving.http_frontend",
     "shm.cli", "orca.learn.graphs",
     "zouwu.model.tcmf", "feature", "feature.feature_set",
-    "orca.data.tfrecord")]
+    "orca.data.tfrecord",
+    "feature.text", "feature.text.text_set",
+    "pipeline.api.keras.layers.recurrent",
+    "pipeline.api.keras.layers.convolutional",
+    "pipeline.api.keras.layers.pooling",
+    "pipeline.api.keras.layers.embeddings",
+    "models.textclassification", "models.textclassification.text_classifier",
+    "models.textmatching", "models.textmatching.knrm", "models.seq2seq",
+    "models.seq2seq.seq2seq", "models.anomalydetection",
+    "models.anomalydetection.anomaly_detector",
+    "models.recommendation.wide_and_deep",
+    "models.recommendation.session_recommender", "tfpark.text.keras")]
 
 
 def test_port_imports_no_jax():
