@@ -21,8 +21,10 @@ __version__ = "0.1.0"
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from .common.config import OrcaConfig, OrcaContext  # noqa: E402
 from .common.context import (ClusterContext, get_context,  # noqa: E402
                              init_orca_context, stop_orca_context)
 
-__all__ = ["ClusterContext", "init_orca_context", "stop_orca_context",
-           "get_context", "__version__"]
+__all__ = ["OrcaConfig", "OrcaContext", "ClusterContext",
+           "init_orca_context", "stop_orca_context", "get_context",
+           "__version__"]

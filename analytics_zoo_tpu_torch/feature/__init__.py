@@ -1,6 +1,6 @@
 """Feature engineering (counterpart of ``analytics_zoo_tpu/feature``): the
-FeatureSet cache tiers, and the text input (``feature.text``). The image
-input is not ported yet (ROADMAP A8)."""
+FeatureSet cache tiers, the text input (``feature.text``) and the image
+inputs (``feature.image``, ``feature.image3d``)."""
 
 from .feature_set import DiskFeatureSet, FeatureSet
 

@@ -26,7 +26,7 @@ from ...common.initializers import as_torch_dtype
 from ...common.zoo_model import ZooModel
 from .loss import multibox_loss
 from .postprocess import decode_detections, scale_detections
-from .ssd import SSD, ssd_300, ssd_tiny
+from .ssd import SSD, SSDMobileNetV2, ssd_300, ssd_tiny
 
 PASCAL_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -128,9 +128,8 @@ class ObjectDetector(ZooModel):
             module = ssd_tiny(num_classes, image_size=image_size,
                               **net_kwargs)
         elif model_type == "ssd_mobilenet_v2":
-            raise NotImplementedError(
-                "ssd_mobilenet_v2 needs the MobileNetV2 backbone of "
-                "models/image/imageclassification, which is not ported yet")
+            module = SSDMobileNetV2(num_classes=num_classes,
+                                    image_size=image_size, **net_kwargs)
         else:
             raise ValueError(f"unknown model_type {model_type!r} "
                              "(known: ssd300, ssd_tiny, ssd_mobilenet_v2)")
@@ -166,18 +165,19 @@ class ObjectDetector(ZooModel):
                           max_detections: int = 100,
                           batch_size: int = 32,
                           original_sizes: Optional[List] = None):
-        """ndarray ``[B, H, W, 3]`` -> ``[B, max_detections, 6]`` (label,
-        score, box).
+        """ImageSet or ndarray ``[B, H, W, 3]`` -> ``[B, max_detections, 6]``
+        (label, score, box); an ImageSet's images are stacked as they are,
+        so they must share one size.
 
         Boxes come back in pixel coords of the *input* images (the
         reference's ScaleDetection step); pass ``original_sizes`` as a list of
         (height, width) to rescale to pre-resize frames instead.
         """
-        if not isinstance(image_set, (np.ndarray, list, tuple)):
-            raise NotImplementedError(
-                "ImageSet input needs feature/image (queue A8), which is "
-                "not ported yet; pass an ndarray of images")
-        imgs = np.asarray(image_set)
+        from ....feature.image.imageset import ImageSet
+        if isinstance(image_set, ImageSet):
+            imgs = np.stack(image_set.get_image())
+        else:
+            imgs = np.asarray(image_set)
         loc, conf = self.predict(imgs, batch_size=batch_size)
         dev = self.estimator.device
         with torch.no_grad():
@@ -237,6 +237,11 @@ class ObjectDetector(ZooModel):
         decode and NMS stay f32."""
         from ....pipeline.inference.inference_model import InferenceModel
 
+        if not isinstance(self.module, SSD):
+            raise NotImplementedError(
+                f"as_inference_model serves the SSD ladder (ssd300, "
+                f"ssd_tiny); serving {self.model_type} waits in ROADMAP "
+                f"queue A9")
         device = self.estimator.device
         if serve_dtype is None:
             serve_dtype = torch.bfloat16 if device.type == "cuda" \

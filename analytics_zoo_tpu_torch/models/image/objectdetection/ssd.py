@@ -1,5 +1,6 @@
-"""SSD detector network (counterpart of ``analytics_zoo_tpu/models/image/
-objectdetection/ssd.py``: ``SSD``, ``ssd_300``, ``ssd_tiny``).
+"""SSD detector networks (counterpart of ``analytics_zoo_tpu/models/image/
+objectdetection/ssd.py``: ``SSD``, ``ssd_300``, ``ssd_tiny``,
+``SSDMobileNetV2`` and ``ssd_mobilenet_specs``).
 
 Reference: ``zoo/.../models/image/objectdetection/ssd/SSDGraph.scala`` +
 ``SSD.scala`` (a conv trunk with extra stride-2 feature layers; per-scale
@@ -26,6 +27,13 @@ zoo's callers feed it:
 
 Activations are ``(B, C, H, W)``-shaped tensors over NHWC memory, as the
 input arrives, so cuDNN takes its channels-last paths.
+
+:class:`SSDMobileNetV2` hangs its heads off the image-classification
+family's ``MobileNetV2(return_features=True)`` (submodule ``backbone``):
+its stride-16 and stride-32 maps, then stride-2 ``_conv_bn_act`` extras
+(``extra{i}_conv``/``extra{i}_bn``, 256 wide) down to 1x1; heads are flax
+``SAME`` 3x3 convs with bias, ``loc{size}``/``conf{size}``. The pyramid is
+19/10/5/3/2/1 at 300 (``ssd_mobilenet_specs``).
 """
 
 from __future__ import annotations
@@ -170,3 +178,90 @@ def ssd_tiny(num_classes: int, image_size: int = 64,
     return SSD(num_classes=num_classes, image_size=image_size,
                specs=tuple(tiny_specs(image_size)), base_width=base_width,
                max_width=64)
+
+
+def _mobilenet_chain(image_size: int) -> Sequence[int]:
+    """Feature-map sizes of the MobileNet-SSD pyramid: the backbone's
+    stride-16 tap, its stride-32 head, then stride-2 extras to 1x1."""
+    s = image_size
+    for _ in range(4):                     # stem + three stride-2 stages
+        s = -(-s // 2)
+    sizes = [s]                            # stride 16
+    while s > 1:
+        s = -(-s // 2)
+        sizes.append(s)
+    return sizes
+
+
+def ssd_mobilenet_specs(image_size: int = 300) -> Sequence[PriorSpec]:
+    """Prior schedule over the MobileNet pyramid (e.g. 19/10/5/3/2/1 at
+    300), standard SSD scale interpolation 0.2 -> 0.95."""
+    sizes = _mobilenet_chain(image_size)
+    n = len(sizes)
+    lo, hi = 0.2, 0.95
+    scales = [lo + (hi - lo) * i / max(n - 1, 1) for i in range(n)] + [1.0]
+    return [PriorSpec(fm, scales[i] * image_size, scales[i + 1] * image_size,
+                      (2.0, 3.0) if 0 < i < 4 else (2.0,))
+            for i, fm in enumerate(sizes)]
+
+
+class SSDMobileNetV2(nn.Module):
+    """SSD with a MobileNet-V2 backbone (the reference ships SSD-MobileNet
+    artifacts alongside SSD-VGG, docs ProgrammingGuide/object-detection.md;
+    Scala pipeline: models/image/objectdetection/ssd/). ``forward(x)``: x
+    ``[B, H, W, 3]`` float -> (loc ``[B, A, 4]``, conf ``[B, A, C]``), both
+    f32; the trunk computes in the input's float dtype, as flax's does."""
+
+    def __init__(self, num_classes: int, image_size: int = 300):
+        super().__init__()
+        from ..imageclassification.families import MobileNetV2, add_conv_bn
+        self.num_classes = int(num_classes)      # including background 0
+        self.image_size = int(image_size)
+        self.backbone = MobileNetV2(return_features=True, compute_dtype=None)
+        chain = _mobilenet_chain(self.image_size)
+        widths = [96, 1280]             # the stride-16 and stride-32 taps
+        self.extras = []
+        for i in range(len(chain) - 2):
+            add_conv_bn(self, f"extra{i}", widths[-1], 256, 3, 2, None)
+            self.extras.append(f"extra{i}")
+            widths.append(256)
+        for sp, width in zip(self._specs(), widths):
+            k = sp.num_priors
+            self.add_module(f"loc{sp.fm_size}",
+                            SameConv(width, k * 4, use_bias=True))
+            self.add_module(f"conf{sp.fm_size}", SameConv(
+                width, k * self.num_classes, use_bias=True))
+
+    @property
+    def config(self) -> Dict[str, Any]:
+        return {"num_classes": self.num_classes,
+                "image_size": self.image_size}
+
+    def _specs(self) -> Sequence[PriorSpec]:
+        return ssd_mobilenet_specs(self.image_size)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        from ..imageclassification.families import _conv_bn_act
+        # flax computes in the input's dtype (an integer batch, which
+        # flax's convs refuse, computes in f32 here)
+        dt = x.dtype if x.is_floating_point() else torch.float32
+        f16, h = self.backbone(x.to(dt))
+        feats = [f16, h]
+        for name in self.extras:
+            h = _conv_bn_act(self, h, name)
+            feats.append(h)
+        b = x.shape[0]
+        locs, confs = [], []
+        for sp, f in zip(self._specs(), feats):
+            if f.shape[2] != sp.fm_size:
+                raise ValueError(f"feature map {tuple(f.shape[2:])} does "
+                                 f"not fit {sp} (input {tuple(x.shape)})")
+            loc = getattr(self, f"loc{sp.fm_size}")(f)
+            conf = getattr(self, f"conf{sp.fm_size}")(f)
+            locs.append(loc.permute(0, 2, 3, 1).reshape(b, -1, 4))
+            confs.append(conf.permute(0, 2, 3, 1).reshape(
+                b, -1, self.num_classes))
+        return (torch.cat(locs, 1).float(), torch.cat(confs, 1).float())
+
+    def priors(self) -> np.ndarray:
+        return generate_priors(self.image_size, self._specs())

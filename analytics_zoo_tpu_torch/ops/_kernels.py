@@ -4,6 +4,9 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. A
 library is keyed by a hash of the sources (``csrc/*.cu`` and ``*.cuh``) and
 of the flags, and built at first use into ``analytics_zoo_tpu_torch/build/``;
+a source that calls a CUDA library (``jpeg_decode`` calls nvJPEG) links it
+from the toolkit's ``lib64`` or from the ``nvidia/<library>`` wheel,
+whichever the machine has, with an rpath to it;
 ``build_all`` starts one ``nvcc`` per source, all at once. A failed build
 raises with nvcc's output, a failed launch with the CUDA error string:
 nothing falls back to the plain versions. ptxas's resource report
@@ -54,7 +57,11 @@ _SIGNATURES = {
     "flash_bwd_dkv": ("zoo_flash_bwd_dkv",
                       [_c_p] * 8 + [_c_i] * 6 + [_c_ll] * 15
                       + [_c_f, _c_f, _c_i, _c_p]),
+    # data length out width height stream
+    "jpeg_decode": ("zoo_jpeg_decode", [_c_p, _c_ll, _c_p, _c_i, _c_i, _c_p]),
 }
+# the CUDA library each source links, by source name
+_LINKS = {"jpeg_decode": "nvjpeg"}
 # libraries that answer occupancy queries: (dtype, D, int[2] out)
 _OCCUPANCY = {"flash_fwd": "zoo_flash_fwd_occupancy",
               "flash_bwd_dq": "zoo_flash_bwd_dq_occupancy",
@@ -81,8 +88,52 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
+def _cuda_home() -> str:
+    return os.path.dirname(os.path.dirname(os.path.realpath(_nvcc())))
+
+
+def _wheel_dirs(library: str) -> List[str]:
+    """``nvidia/<library>`` directories of the installed CUDA wheels (found
+    without importing them)."""
+    import importlib.util
+    spec = importlib.util.find_spec("nvidia")
+    roots = list(spec.submodule_search_locations) if spec else []
+    return [os.path.join(r, library) for r in roots]
+
+
+def link_flags(name: str) -> List[str]:
+    """nvcc's include, link and rpath flags for the CUDA library that
+    ``csrc/<name>.cu`` calls (none for the others). Raises, naming every
+    place it looked, when the machine lacks the library's header or its
+    shared object."""
+    library = _LINKS.get(name)
+    if library is None:
+        return []
+    home = _cuda_home()
+    roots = [home, os.path.join(home, "targets", "x86_64-linux")] + \
+        _wheel_dirs(library)
+    headers = [os.path.join(r, "include") for r in roots
+               if os.path.exists(os.path.join(r, "include", library + ".h"))]
+    for lib_dir in [os.path.join(r, d) for r in roots
+                    for d in ("lib64", "lib")]:
+        found = sorted(glob.glob(os.path.join(lib_dir, f"lib{library}.so*")))
+        if found and headers:
+            plain = os.path.join(lib_dir, f"lib{library}.so")
+            link = (f"-l{library}" if plain in found
+                    else f"-l:{os.path.basename(found[0])}")
+            return ["-I", headers[0], "-L", lib_dir, link,
+                    f"-Xlinker=-rpath,{lib_dir}"]
+    raise RuntimeError(
+        f"{name} needs {library}.h and lib{library}.so*, which are in none "
+        f"of {roots} (include/, lib64/, lib/)")
+
+
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + link_flags(name)
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     for path in [os.path.join(CSRC, name + ".cu")] + headers:
         h.update(os.path.basename(path).encode())
@@ -108,7 +159,8 @@ def _start_build(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{final}.{os.getpid()}.tmp"
     cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp,
-                                      os.path.join(CSRC, name + ".cu")])
+                                      os.path.join(CSRC, name + ".cu")]
+           + link_flags(name))
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, final, cmd

@@ -1,3 +1,3 @@
-from .estimator import TPUEstimator
+from .estimator import Estimator, TPUEstimator
 
-__all__ = ["TPUEstimator"]
+__all__ = ["Estimator", "TPUEstimator"]

@@ -1,4 +1,6 @@
 from .nn_classifier import (NNClassifier, NNClassifierModel, NNEstimator,
                             NNModel)
+from .nn_image_reader import NNImageReader
 
-__all__ = ["NNClassifier", "NNClassifierModel", "NNEstimator", "NNModel"]
+__all__ = ["NNClassifier", "NNClassifierModel", "NNEstimator", "NNModel",
+           "NNImageReader"]

@@ -381,10 +381,14 @@ def test_detector_save_load_and_surface(tmp_path):
         det2.predict_image_set(imgs[:2], max_detections=5), p1)
     res = det.evaluate_map(imgs, boxes, labels)
     assert 0.0 <= res["mAP"] <= 1.0
-    with pytest.raises(NotImplementedError, match="A8"):
-        det.predict_image_set(object())
-    with pytest.raises(NotImplementedError):
-        tod.ObjectDetector(model_type="ssd_mobilenet_v2", device="cpu")
+    # an ImageSet is taken as its stacked images (JAX detector.py:117-121)
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    np.testing.assert_array_equal(det.predict_image_set(
+        ImageSet.from_arrays(imgs[:2]), max_detections=5), p1)
+    mobile = tod.ObjectDetector(model_type="ssd_mobilenet_v2", device="cpu")
+    assert isinstance(mobile.module, tod.SSDMobileNetV2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        mobile.as_inference_model()
     assert tod.read_pascal_label_map() == jod.read_pascal_label_map()
     assert tod.read_coco_label_map() == jod.read_coco_label_map()
     img = np.zeros((32, 32, 3), np.uint8)

@@ -239,13 +239,23 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models.seq2seq.seq2seq", "models.anomalydetection",
     "models.anomalydetection.anomaly_detector",
     "models.recommendation.wide_and_deep",
-    "models.recommendation.session_recommender", "tfpark.text.keras")]
+    "models.recommendation.session_recommender", "tfpark.text.keras",
+    "feature.image", "feature.image.codecs", "feature.image.preprocessing",
+    "feature.image.imageset", "feature.image3d",
+    "feature.image3d.transformation",
+    "models.image.imageclassification",
+    "models.image.imageclassification.families",
+    "models.image.imageclassification.inception",
+    "models.image.imageclassification.classifier",
+    "pipeline.nnframes.nn_image_reader", "ops", "orca", "orca.learn")]
 
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports without JAX,
-    flax, optax, aiohttp or the JAX package, and without pandas (which the
-    port imports only inside the functions that take DataFrames)."""
+    flax, optax, aiohttp or the JAX package, without pandas (which the
+    port imports only inside the functions that take DataFrames), and
+    without cv2 or PIL (the image decoders and transforms are the port's
+    own: the card's machine is not held to have either)."""
     code = (
         "import sys, json, pkgutil, importlib\n"
         "import analytics_zoo_tpu_torch as pkg\n"
@@ -255,7 +265,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'analytics_zoo_tpu',\n"
-        "        'pandas', 'aiohttp')]\n"
+        "        'pandas', 'aiohttp', 'cv2', 'PIL')]\n"
         "print(json.dumps([len(names), bad, names]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
