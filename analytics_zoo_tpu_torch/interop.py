@@ -45,6 +45,12 @@ in exact arithmetic):
   ``ScaleByAdaDeltaState`` ``e_g``/``e_x`` -> ``square_avg``/
   ``acc_delta``. These states exist from optax's init (the accumulator at
   0.1, the others at 0), so they cross before the first step too.
+* optax ``MultiSteps`` (the JAX ``ZooOptimizer``): ``MultiStepsState``'s
+  ``mini_step`` and ``gradient_step`` <-> the port's ``MultiSteps``
+  counters, ``acc_grads`` <-> each parameter's ``acc`` (the running mean),
+  and ``inner_opt_state`` <-> the inner optimizer's state by the rules
+  above, its counts being the window count ``gradient_step``. A state
+  taken in the middle of a window resumes there.
 
 Free parameters named ``weight`` (the Keras ``Scale``, ``CMul``, ``Mul``
 and the autograd ``Parameter``) cannot be told from a Linear's weight by
@@ -253,7 +259,17 @@ def optax_state_to_torch(opt_state, optimizer: torch.optim.Optimizer,
     over the parameters ``param_names`` names, in order). An Adam-type or
     SGD state before the first step gives an empty ``state``, as torch's
     own optimizers start."""
-    from .orca.learn.optimizers.optimizers_impl import AdamaxRule
+    from .orca.learn.optimizers.optimizers_impl import (AdamaxRule,
+                                                        MultiSteps)
+    if isinstance(optimizer, MultiSteps):
+        ms = _find(opt_state, ("MultiStepsState",))
+        out = optax_state_to_torch(ms.inner_opt_state, optimizer.inner,
+                                   param_names)
+        out["multi_steps"] = {
+            "mini_step": int(np.asarray(ms.mini_step)),
+            "gradient_step": int(np.asarray(ms.gradient_step)),
+            "acc": dict(enumerate(_by_name(ms.acc_grads, param_names)))}
+        return out
     groups = copy.deepcopy(optimizer.state_dict()["param_groups"])
     inject = _find(opt_state, _INJECT)
     if inject is not None:
@@ -298,6 +314,30 @@ def torch_state_to_optax(torch_state: Mapping[str, Any],
     ``template`` (the JAX optimizer's state, e.g. ``tx.init(params)``),
     rebuilt with the template's own classes. ``step`` is the engine's
     step count (the injected state's ``count``)."""
+    ms = torch_state.get("multi_steps")
+    if ms is not None:
+        inner = {k: v for k, v in torch_state.items() if k != "multi_steps"}
+
+        def fill_ms(node):
+            if type(node).__name__ == "MultiStepsState":
+                window = int(ms["gradient_step"])
+                by_index = {int(i): a for i, a in ms["acc"].items()}
+                acc = (_to_flax({n: by_index[i]
+                                 for i, n in enumerate(param_names)})
+                       if by_index else node.acc_grads)
+                return node._replace(
+                    mini_step=np.asarray(ms["mini_step"], np.asarray(
+                        node.mini_step).dtype),
+                    gradient_step=np.asarray(window, np.asarray(
+                        node.gradient_step).dtype),
+                    inner_opt_state=torch_state_to_optax(
+                        inner, param_names, node.inner_opt_state, window),
+                    acc_grads=acc)
+            if isinstance(node, (list, tuple)) and not hasattr(node,
+                                                               "_fields"):
+                return type(node)(fill_ms(v) for v in node)
+            return node
+        return fill_ms(template)
     st = torch_state["state"]
     lr = float(torch_state["param_groups"][0]["lr"])
 

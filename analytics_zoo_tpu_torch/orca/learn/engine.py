@@ -67,7 +67,10 @@ graph replay what the eager steps compute:
 :meth:`TrainEngine.graph_gate` says, before anything is captured, why a
 module cannot be (an optimizer built without ``capturable``, a schedule
 over a float lr, a random layer on a torch without graph-safe
-generators): the estimator then runs it unfused and logs the reason, and
+generators, an optimizer that names its own ``graph_refusal``, as
+gradient accumulation's ``MultiSteps`` does): the estimator then runs it
+unfused, logs the reason and puts it in each epoch's stats
+(``unfused_reason``), and
 a group handed to the engine on the card anyway raises before it
 captures.
 
@@ -78,7 +81,7 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +136,7 @@ class TrainEngine:
         self._clip_norm: Optional[float] = None
         self._clip_min: Optional[float] = None
         self._clip_max: Optional[float] = None
+        self._clip_chain: Tuple[Tuple, ...] = ()
         self._graphs: Dict[Any, graphs.StepGraph] = {}
         self._graph_stream = None       # side stream: warm-up and capture
 
@@ -152,16 +156,32 @@ class TrainEngine:
     def clear_gradient_clipping(self):
         self.set_gradient_clipping(norm=None, min_value=None, max_value=None)
 
+    def set_clip_chain(self, chain):
+        """Clippings applied in the given order before the settings above,
+        as an optax chain of them would: each ``("norm", c)`` or
+        ``("value", lo, hi)``; ``()`` for none."""
+        self._clip_chain = tuple(tuple(c) for c in chain)
+
+    @staticmethod
+    def _clip_norm_(grads, clip):
+        """Scale by min(1, clip / max(norm, 1e-12)), in place."""
+        gnorm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.clamp(clip / gnorm.clamp_min(1e-12), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+
     def _clip_grads(self, grads):
-        """Global-norm clipping (scale by min(1, clip / max(norm, 1e-12))),
-        then clipping by value, in place."""
+        """The clip chain in its order, then global-norm clipping, then
+        clipping by value, in place."""
+        for kind, *args in self._clip_chain:
+            if kind == "norm":
+                self._clip_norm_(grads, args[0])
+            else:
+                for g in grads:
+                    g.clamp_(*args)
         if self._clip_norm is not None:
-            gnorm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-            scale = torch.clamp(self._clip_norm / gnorm.clamp_min(1e-12),
-                                max=1.0)
-            for g in grads:
-                g.mul_(scale)
+            self._clip_norm_(grads, self._clip_norm)
         if self._clip_min is not None or self._clip_max is not None:
             for g in grads:
                 g.clamp_(self._clip_min, self._clip_max)
@@ -227,20 +247,31 @@ class TrainEngine:
             else:
                 group["lr"] = lr
 
-    def graph_gate(self) -> Optional[str]:
+    def graph_gate(self, training: bool = True) -> Optional[str]:
         """Why this engine's fused groups cannot be CUDA graphs on its
         device, or None when they can (always None off the card, where a
         group is k eager steps). Decided from the module and optimizer
-        alone, before anything is captured."""
+        alone, before anything is captured; ``training=False`` asks for
+        evaluation's groups, which never step the optimizer, so only the
+        module is consulted."""
         if self.device.type != "cuda":
             return None
+        if not training:
+            return self._module_gate()
         self.build()
+        refusal = getattr(self.opt, "graph_refusal", None)
+        if refusal:
+            return refusal
         for group in self.opt.param_groups:
             if group.get("capturable") is False:
                 return (f"{type(self.opt).__name__} was built without "
                         "capturable=True")
         if self.lr_at is not None and self._lr_tensors() is None:
             return "an lr schedule over a float lr"
+        return self._module_gate()
+
+    def _module_gate(self) -> Optional[str]:
+        self.build()
         if self._random_layers and not graphs.generators_supported():
             return ("a layer draws random numbers and this torch cannot "
                     "register a generator with a CUDA graph")
@@ -343,7 +374,8 @@ class TrainEngine:
     def _signature(self, kind: str, batch: Batch, extra=()):
         return (kind, batch.fused, tuple(
             (tuple(t.shape), t.dtype) for t in batch.leaves()),
-            self._clip_norm, self._clip_min, self._clip_max) + tuple(extra)
+            self._clip_norm, self._clip_min, self._clip_max,
+            self._clip_chain) + tuple(extra)
 
     def _side_stream(self):
         if self._graph_stream is None:
@@ -351,8 +383,8 @@ class TrainEngine:
         self._graph_stream.wait_stream(torch.cuda.current_stream(self.device))
         return self._graph_stream
 
-    def _refuse_capture(self):
-        reason = self.graph_gate()
+    def _refuse_capture(self, training: bool = True):
+        reason = self.graph_gate(training)
         if reason is not None:
             raise RuntimeError(f"a fused group cannot be captured: {reason}")
 
@@ -424,7 +456,7 @@ class TrainEngine:
         g = self._graphs.get(key)
         state_leaves, spec = pytree.tree_flatten(metric_states)
         if g is None:
-            self._refuse_capture()
+            self._refuse_capture(training=False)
             stream = self._side_stream()
             with torch.cuda.stream(stream):
                 for t in b.leaves():

@@ -50,7 +50,8 @@ checkpoint trigger's ``fuse_cap()`` and the epoch length; the ragged tail
 runs as single padded steps; triggers, preemption and TensorBoard are
 observed at group boundaries. An iterator without ``supports_fused`` (an
 ``ImageNetPipeline``), an explicit ``steps_per_epoch`` and a module the
-engine's ``graph_gate`` refuses on the card run unfused. The probed k is
+engine's ``graph_gate`` refuses on the card run unfused (the reason in
+each epoch's stats as ``unfused_reason``). The probed k is
 cached per input signature on the estimator; the JAX compile plane's
 persisted probe result (``cache.get_aux("fuse")``) waits for ROADMAP A12.
 
@@ -206,6 +207,7 @@ class TPUEstimator:
         self._tb_val = None
         self._fuse_probe_cache: Dict[Any, int] = {}
         self.fuse = 1                   # k of the last fit (1: unfused)
+        self.unfused_reason: Optional[str] = None   # the graph gate's
         self.eval_fuse = 1              # k of the last evaluate
         self.probe_steps = 0            # rolled-back train probe steps
 
@@ -380,6 +382,7 @@ class TPUEstimator:
                     setattr(it, counter, int(initial_epoch))
         self.engine.materialize(_draw_sample(it))
         self.engine.build()
+        self.unfused_reason = self.engine.graph_gate()
         trigger = (Trigger.convert_trigger(checkpoint_trigger)
                    if checkpoint_trigger else None)
         if trigger is not None:
@@ -476,8 +479,8 @@ class TPUEstimator:
 
     def _graph_refused(self) -> bool:
         """Whether the engine's graph gate keeps this module unfused on the
-        card (logged)."""
-        reason = self.engine.graph_gate()
+        card (logged; ``fit`` read the gate into ``unfused_reason``)."""
+        reason = self.unfused_reason
         if reason is not None:
             logger.warning("training unfused on %s: %s", self.device, reason)
         return reason is not None
@@ -574,7 +577,7 @@ class TPUEstimator:
         if not getattr(it, "supports_fused", False) or \
                 num_steps is not None or it.steps_per_epoch < 2:
             return 1
-        if self.engine.graph_gate() is not None:
+        if self.engine.graph_gate(training=False) is not None:
             return 1
         cfg = self._fuse_cfg()
         batch_bytes = self._iter_batch_bytes(it)
@@ -735,6 +738,8 @@ class TPUEstimator:
         stats = {"epoch": ep + 1, "train_loss": mean_loss,
                  "num_samples": len(it.x[0]) if hasattr(it, "x") else None,
                  "time_s": round(time.time() - t0, 3)}
+        if self.unfused_reason is not None:
+            stats["unfused_reason"] = self.unfused_reason
         if timer is not None:
             step_ms = timer.read()
             n = max(len(host_losses), 1)

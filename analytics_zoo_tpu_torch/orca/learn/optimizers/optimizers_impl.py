@@ -358,6 +358,121 @@ class Ftrl(Optimizer):
             initial_accumulator_value=self.init_acc))
 
 
+class MultiSteps(torch.optim.Optimizer):
+    """optax ``MultiSteps(inner, every_k_schedule=k)``: gradient
+    accumulation. Each ``step`` folds the parameters' gradients into a
+    running mean, ``acc + (g - acc) / (mini_step + 1)`` as optax keeps it
+    (a mean, not a sum); the k-th step hands that mean to the inner
+    optimizer as the gradients, applies its update and starts a new
+    window. The k - 1 steps before it change neither the parameters nor
+    the inner state (so the inner step count, Adam's bias correction, and
+    a schedule advance once per window).
+
+    The counters ``mini_step`` and ``gradient_step`` are host integers:
+    which step applies the update is decided on the host, a branch that a
+    CUDA graph cannot replay, so the training engine refuses to capture
+    it (``graph_refusal``) and trains unfused on the card.
+
+    ``state_dict`` is the inner optimizer's with a ``"multi_steps"`` entry
+    (the counters and each parameter's ``acc``, by the parameter's index
+    in the inner state's numbering); ``interop`` maps it to and from
+    optax's ``MultiStepsState``.
+    """
+
+    graph_refusal = ("MultiSteps (ZooOptimizer) applies its update on "
+                     "every k-th step only, a host branch a CUDA graph "
+                     "cannot replay")
+
+    def __init__(self, params, make_inner: OptimizerFactory, every_k: int):
+        params = list(params)
+        inner = make_inner(params)
+        super().__init__(params, dict(inner.defaults))
+        self.inner = inner
+        # one set of groups: the engine sets the lr on ours, the inner
+        # optimizer reads it
+        self.param_groups = inner.param_groups
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        n = self.mini_step
+        for p in self._params():
+            if p.grad is None:
+                continue
+            st = self.state[p]
+            if "acc" not in st:
+                st["acc"] = torch.zeros_like(p)
+            acc = st["acc"]
+            acc.add_((p.grad - acc) / (n + 1))
+        if n < self.every_k - 1:
+            self.mini_step = n + 1
+            return loss
+        for p in self._params():
+            if p.grad is not None:
+                p.grad.copy_(self.state[p]["acc"])
+        self.inner.step()
+        for p in self._params():
+            if "acc" in self.state[p]:
+                self.state[p]["acc"].zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+        return loss
+
+    def state_dict(self):
+        sd = self.inner.state_dict()
+        index = {id(p): i for i, p in enumerate(self._params())}
+        sd["multi_steps"] = {
+            "mini_step": self.mini_step,
+            "gradient_step": self.gradient_step,
+            "acc": {index[id(p)]: st["acc"]
+                    for p, st in self.state.items() if "acc" in st}}
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        ms = state_dict.pop("multi_steps", None)
+        self.inner.load_state_dict(state_dict)
+        self.param_groups = self.inner.param_groups
+        self.state.clear()
+        if ms is None:
+            self.mini_step = self.gradient_step = 0
+            return
+        self.mini_step = int(ms["mini_step"])
+        self.gradient_step = int(ms["gradient_step"])
+        params = self._params()
+        for i, acc in ms["acc"].items():
+            p = params[int(i)]
+            self.state[p]["acc"] = torch.as_tensor(acc).to(
+                device=p.device, dtype=p.dtype).clone()
+
+
+def multi_steps(opt, every_k: int) -> OptimizerFactory:
+    """A factory of :class:`MultiSteps` over ``opt`` (anything
+    :func:`convert_optimizer` takes). A schedule of the inner optimizer
+    advances once per window, as optax's inner count does: the engine
+    asks ``lr_at`` with its count of micro-steps, and the update of
+    window j reads the inner schedule at j."""
+    inner = convert_optimizer(opt)
+    k = int(every_k)
+
+    def make(params):
+        return MultiSteps(params, inner, k)
+
+    inner_lr_at = getattr(inner, "lr_at", None)
+    make.lr_at = ((lambda step: inner_lr_at(step // k))
+                  if inner_lr_at is not None else None)
+    return make
+
+
 class LBFGS(Optimizer):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("optimizer LBFGS is not ported yet")

@@ -201,6 +201,8 @@ class _ConvND(Layer):
         super().__init__(input_shape, name)
         self.n, self.activation = n, activation
         self.dim_ordering = dim_ordering
+        self.nb_filter, self.border_mode = nb_filter, border_mode
+        self.use_bias = use_bias
         self.Conv_0 = FlaxConv(nb_filter, kernel, strides,
                                _pad_mode(border_mode), dilation,
                                use_bias=use_bias)
@@ -227,6 +229,10 @@ class Convolution1D(_ConvND):
         super().__init__(1, nb_filter, (filter_length,), (subsample_length,),
                          (dilation_rate,), border_mode, activation, None,
                          use_bias, input_shape, name)
+        self.filter_length, self.subsample_length = (filter_length,
+                                                     subsample_length)
+        self.dilation_rate, self.init_method = dilation_rate, init_method
+        self.W_regularizer, self.b_regularizer = W_regularizer, b_regularizer
 
 
 class AtrousConvolution1D(Convolution1D):
@@ -259,6 +265,9 @@ class Convolution2D(_ConvND):
         super().__init__(2, nb_filter, (nb_row, nb_col), subsample, None,
                          border_mode, activation, dim_ordering, use_bias,
                          input_shape, name)
+        self.nb_row, self.nb_col, self.subsample = nb_row, nb_col, subsample
+        self.init_method = init_method
+        self.W_regularizer, self.b_regularizer = W_regularizer, b_regularizer
 
 
 class AtrousConvolution2D(Convolution2D):
@@ -367,6 +376,7 @@ class LocallyConnected1D(LazyModuleMixin, Layer):
         super().__init__(input_shape, name)
         self.nb_filter, self.filter_length = nb_filter, filter_length
         self.subsample_length, self.activation = subsample_length, activation
+        self.use_bias = use_bias
         self.weight = UninitializedParameter()
         if use_bias:
             self.bias = UninitializedParameter()

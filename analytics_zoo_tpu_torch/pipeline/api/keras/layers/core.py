@@ -83,6 +83,8 @@ class Dense(Layer):
                  input_shape: Any = None, name: Optional[str] = None):
         super().__init__(input_shape, name)
         self.output_dim, self.activation = output_dim, activation
+        self.use_bias, self.init_method = use_bias, init_method
+        self.W_regularizer, self.b_regularizer = W_regularizer, b_regularizer
         kernel_init = ("glorot_uniform" if init_method == "glorot_uniform"
                        else "lecun_normal")
         self.Dense_0 = FlaxLinear(output_dim, use_bias, kernel_init)

@@ -38,6 +38,8 @@ class Embedding(Layer):
         super().__init__(input_shape, name)
         self.input_dim, self.output_dim = input_dim, output_dim
         self.trainable, self.zero_based_id = trainable, zero_based_id
+        self.init_method, self.weights, self.dtype = (init_method, weights,
+                                                      dtype)
         dtype = as_torch_dtype(dtype)
         shape = (input_dim, output_dim)
         if weights is not None:

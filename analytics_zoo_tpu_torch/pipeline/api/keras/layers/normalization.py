@@ -55,6 +55,8 @@ class BatchNormalization(Layer):
                  input_shape: Any = None, name: Optional[str] = None):
         super().__init__(input_shape, name)
         self.dim_ordering, self.axis = dim_ordering, axis
+        self.epsilon, self.momentum = epsilon, momentum
+        self.beta_init, self.gamma_init = beta_init, gamma_init
         self.BatchNorm_0 = LazyBatchNorm(momentum, epsilon)
 
     def forward(self, x):

@@ -308,8 +308,11 @@ class _Recurrent(Layer):
                            go_backwards=go_backwards,
                            input_shape=input_shape, name=name)
         self.output_dim = output_dim
+        self.activation, self.inner_activation = activation, inner_activation
         self.return_sequences, self.go_backwards = (return_sequences,
                                                     go_backwards)
+        self.W_regularizer, self.U_regularizer, self.b_regularizer = (
+            W_regularizer, U_regularizer, b_regularizer)
         self.add_module(self.CELL, self._cell(output_dim, activation,
                                               inner_activation))
 
@@ -380,6 +383,8 @@ class ConvLSTM2D(Layer):
         self.return_sequences, self.go_backwards = (return_sequences,
                                                     go_backwards)
         self.dim_ordering = dim_ordering
+        self.nb_filter, self.nb_kernel = nb_filter, nb_kernel
+        self.border_mode, self.subsample = border_mode, subsample
         self.ConvLSTMCell_0 = ConvLSTMCell(nb_filter, (nb_kernel, nb_kernel))
 
     def forward(self, x):

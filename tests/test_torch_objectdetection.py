@@ -31,6 +31,20 @@ from analytics_zoo_tpu.models.image.objectdetection import ssd as jssd
 from analytics_zoo_tpu_torch.models.image import objectdetection as tod
 from analytics_zoo_tpu_torch.models.image.objectdetection import ssd as tssd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Every test here runs torch on one intra-op thread, the old count
+    restored after the module. Beside other busy processes (the suite's
+    other workers) torch's default of one OpenMP thread a core
+    oversubscribes the cores: beside six busy loops the detector's
+    two-step fit took 24.1 s on the default threads and 11.3 s on one."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 TOL_EVAL = 1e-5        # relative to the largest |loc| / |conf|
 TOL_TRAIN = 1e-4       # train mode: batch statistics over 2 images
 TOL_STATS = 1e-5       # relative to each statistic's largest

@@ -30,10 +30,7 @@ WAITING = {
     "models/caffe": ("A9", None),
     "orca/learn/tf2": ("A9", None),
     "parallel": ("A10", None),
-    "pipeline/api/keras2": ("A9", None),
-    "pipeline/api/keras2/layers": ("A9", None),
     "pipeline/api/onnx": ("A9", None),
-    "pipeline/estimator": ("A9", None),
     "native": ("A8", {"Arena", "NativeQueue", "f32_to_bf16_bits",
                       "pad_sequences", "sharded_put", "staging_enabled",
                       "version"}),
@@ -49,9 +46,7 @@ WAITING = {
                           "StreamingStats", "StreamingTrainer",
                           "StreamingXShards", "Window",
                           "module_loss_scorer"}),
-    "tfpark": ("A9", {"GANEstimator", "KerasModel", "TFDataset",
-                      "TFEstimator", "TFNet", "TFOptimizer",
-                      "ZooOptimizer"}),
+    "tfpark": ("A9", {"TFNet"}),
 }
 
 

@@ -54,6 +54,20 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.layers.self_attention import \
 CPU = [torch.device("cpu")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Every test here runs torch on one intra-op thread, the old count
+    restored after the module. The suite runs beside other busy worker
+    processes, and the runtime's trial threads each run torch's CPU ops:
+    with torch's default of one thread a core, their OpenMP teams
+    oversubscribe the cores and a test that takes seconds alone takes
+    minutes."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 # --- rung promotion math ----------------------------------------------------
 
 def test_asha_rung_geometry():

@@ -247,7 +247,21 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "models.image.imageclassification.families",
     "models.image.imageclassification.inception",
     "models.image.imageclassification.classifier",
-    "pipeline.nnframes.nn_image_reader", "ops", "orca", "orca.learn")]
+    "pipeline.nnframes.nn_image_reader", "ops", "orca", "orca.learn",
+    "pipeline.api.keras2", "pipeline.api.keras2.layers",
+    "pipeline.api.keras2.layers.core",
+    "pipeline.api.keras2.layers.convolutional",
+    "pipeline.api.keras2.layers.pooling", "pipeline.api.keras2.layers.merge",
+    "pipeline.api.keras2.layers.embeddings",
+    "pipeline.api.keras2.layers.normalization",
+    "pipeline.api.keras2.layers.advanced_activations",
+    "pipeline.api.keras2.layers.noise",
+    "pipeline.api.keras2.layers.recurrent",
+    "pipeline.api.keras2.layers.local",
+    "pipeline.api.keras2.layers.wrappers",
+    "pipeline.api.keras2.layers.convolutional_recurrent",
+    "orca.learn.gan_estimator", "tfpark", "pipeline.estimator",
+    "pipeline.estimator.estimator")]
 
 
 def test_port_imports_no_jax():

@@ -35,6 +35,20 @@ from analytics_zoo_tpu_torch import interop
 from analytics_zoo_tpu_torch.models.common.initializers import TRUNC_STD
 from analytics_zoo_tpu_torch.zouwu.model import tcmf as tt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Every test here runs torch on one intra-op thread, the old count
+    restored after the module. Beside other busy processes (the suite's
+    other workers) torch's default of one OpenMP thread a core
+    oversubscribes the cores: beside six busy loops the hybrid fit's
+    fixture took 68.8 s on the default threads and 7.6 s on one."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 TOL = 1e-5
 TOL_FIT = 1e-4
 TOL_LOCAL = 2e-3

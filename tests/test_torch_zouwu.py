@@ -37,6 +37,21 @@ from analytics_zoo_tpu_torch.zouwu.model import forecast as tforecast
 from analytics_zoo_tpu_torch.zouwu.model import nets as tnets
 from analytics_zoo_tpu_torch.zouwu.preprocessing import impute as timpute
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Every test here runs torch on one intra-op thread, the old count
+    restored after the module. The suite runs beside other busy worker
+    processes, and the AutoTS trials each run torch's CPU ops:
+    with torch's default of one thread a core, their OpenMP teams
+    oversubscribe the cores and a test that takes seconds alone takes
+    minutes."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 TOL = 1e-5          # relative to the largest magnitude compared
 METRICS = ("mse", "mean_squared_error", "rmse", "mae", "mean_absolute_error",
            "mape", "smape", "r2")
