@@ -41,6 +41,7 @@ import torch
 
 from ..common import knobs as _knobs
 from ..resilience import faults as _faults
+from ..resilience import watchdog as _watchdog
 
 __all__ = ["narrow_wire", "narrows_to", "wire_nbytes", "put_tree",
            "StagingPool", "StagingSlot", "default_h2d_lanes",
@@ -173,8 +174,22 @@ def put_tree(leaves: Sequence, device: torch.device,
     on ``stream`` (a side stream), and the returned event follows them;
     each slot keeps that event until its next reuse. On the CPU the arrays
     become tensors over the same bytes (numpy arrays only: nothing is
-    reused there) and the event is None."""
-    _faults.fire("h2d.put")
+    reused there) and the event is None.
+
+    The ``h2d.put`` fault site fires inside a section of the active
+    dispatch watchdog, so a delay-mode fault (a hung copy) trips it as
+    the real thing would."""
+    wd = _watchdog.active()
+    token = wd.enter("h2d.put") if wd is not None else None
+    try:
+        _faults.fire("h2d.put")
+        return _put_tree(leaves, device, stream)
+    finally:
+        if token is not None:
+            wd.exit(token)
+
+
+def _put_tree(leaves, device, stream):
     if device.type != "cuda":
         return [torch.from_numpy(np.ascontiguousarray(a)) for a in leaves
                 ], None

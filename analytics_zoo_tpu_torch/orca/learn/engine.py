@@ -37,7 +37,9 @@ evaluation mode, as flax's init runs one, or by loading a state.
 A ``prologue`` (``orca/learn/prologue.BatchPrologue``) runs at the start
 of every train, eval and predict step, on the device. ``train_batch``
 records each step's host dispatch time as the ``step`` stage of
-``pipeline_stats`` when the estimator set one.
+``pipeline_stats`` when the estimator set one. Each train dispatch
+fires the ``engine.dispatch`` fault site inside a section of the active
+dispatch watchdog (``resilience/watchdog.py``), as the JAX engine does.
 
 **Fused groups** (the JAX engine's ``lax.scan`` of k steps):
 ``train_batch_group`` and ``eval_batch_group`` take a stacked superbatch
@@ -91,6 +93,7 @@ from torch.utils import _pytree as pytree
 from ...obs import trace as _trace
 from ...pipeline.api.keras.layers.self_attention import DrawsRandom
 from ...resilience import faults as _faults
+from ...resilience import watchdog as _watchdog
 from . import graphs
 from .metrics import Metric
 from .utils import Batch
@@ -489,13 +492,22 @@ class TrainEngine:
     def train_batch(self, batch: Batch) -> torch.Tensor:
         """One optimizer step on a host batch; returns the loss as a device
         scalar (read it after the epoch, so the host keeps issuing)."""
+        # resilience hooks (one global read each when disarmed): the
+        # `engine.dispatch` fault site, and a watchdog section bounding the
+        # dispatch so a wedged device becomes a classified hang
+        wd = _watchdog.active()
+        token = wd.enter("engine.dispatch") if wd is not None else None
         t0 = time.perf_counter()
-        # obs span (one flag check disarmed): the step-indexed segment the
-        # Perfetto timeline renders
-        with _trace.span("engine.dispatch", step=self.step):
-            _faults.fire("engine.dispatch")
-            b = batch.to(self.device)
-            loss = self._train_step(b.x, b.y, b.w)
+        try:
+            # obs span (one flag check disarmed): the step-indexed segment
+            # the Perfetto timeline renders
+            with _trace.span("engine.dispatch", step=self.step):
+                _faults.fire("engine.dispatch")
+                b = batch.to(self.device)
+                loss = self._train_step(b.x, b.y, b.w)
+        finally:
+            if token is not None:
+                wd.exit(token)
         self.step += 1
         if self.pipeline_stats is not None:
             self.pipeline_stats.add("step", time.perf_counter() - t0)
@@ -507,14 +519,20 @@ class TrainEngine:
         (an error when ``graph_gate`` refuses), k eager steps on the CPU.
         Returns the per-step losses ``(k,)``."""
         k = int(batch.fused)
+        wd = _watchdog.active()
+        token = wd.enter("engine.dispatch") if wd is not None else None
         t0 = time.perf_counter()
-        with _trace.span("engine.dispatch", step=self.step, fused=k):
-            _faults.fire("engine.dispatch")
-            b = batch.to(self.device)
-            if self.device.type == "cuda":
-                losses = self._graph_train(b)
-            else:
-                losses = self._train_multi_step(b.x, b.y)
+        try:
+            with _trace.span("engine.dispatch", step=self.step, fused=k):
+                _faults.fire("engine.dispatch")
+                b = batch.to(self.device)
+                if self.device.type == "cuda":
+                    losses = self._graph_train(b)
+                else:
+                    losses = self._train_multi_step(b.x, b.y)
+        finally:
+            if token is not None:
+                wd.exit(token)
         if self.pipeline_stats is not None:
             self.pipeline_stats.add("step", time.perf_counter() - t0,
                                     count=k)

@@ -81,6 +81,7 @@ import torch
 from ...common.context import resolve_device
 from ...native.infeed import PipelineStats
 from ...obs import trace as _trace
+from ...resilience.watchdog import watched
 from ..data.shard import HostXShards
 from . import utils as learn_utils
 from .engine import TrainEngine
@@ -140,6 +141,13 @@ def _draw_sample(it):
     sample = next(gen, None)
     gen.close()
     return sample
+
+
+def _host_rows(preds, w):
+    """The predictions' real rows (``w`` > 0; all without ``w``) on the
+    host: the predict loop's wait on the card."""
+    keep = slice(None) if w is None else w.cpu().numpy() > 0
+    return tuple(p.cpu().numpy()[keep] for p in preds)
 
 
 class Estimator:
@@ -294,10 +302,18 @@ class TPUEstimator:
         """Cumulative input-pipeline stage counters (``assemble_s``,
         ``h2d_s`` with ``h2d_bytes``/``h2d_MBps``, ``step_s``, ``stall_s``,
         ``transfer_limited``, depth and lanes), with the checkpoint plane's
-        counters under ``"ckpt"`` once it exists."""
+        counters under ``"ckpt"`` once it exists and the resilience plane's
+        under ``"resilience"`` once any fired."""
         snap = self._pipeline_stats.snapshot()
         if self._ckpt_plane is not None:
             snap["ckpt"] = self._ckpt_plane.stats.snapshot()
+        from ...resilience.stats import resilience_snapshot
+        res = resilience_snapshot()
+        if res:
+            # resilience-plane counters (process-wide: faults fired,
+            # watchdog trips, supervisor restarts, retries) — omitted on
+            # healthy runs so existing consumers see no new key
+            snap["resilience"] = res
         if reset:
             self._pipeline_stats.reset()
         return snap
@@ -726,7 +742,10 @@ class TPUEstimator:
             close = getattr(batches, "close", None)
             if close is not None:
                 close()                 # stops the pump's threads
-        host_losses = torch.cat(losses).cpu().numpy()
+        # the host's wait on the card (a launch returns before the card
+        # finishes): a watchdog section, so a wedged card is a hang
+        host_losses = watched("engine.sync",
+                              lambda: torch.cat(losses).cpu().numpy())
         if self._tb_train is not None:
             for step, lv in zip(tb_steps, host_losses):
                 self._tb_train.add_scalar("Loss", float(lv), step)
@@ -776,8 +795,9 @@ class TPUEstimator:
             losses.append(batch_loss.reshape(-1))
             counts.append(n.reshape(-1))
         getattr(batches, "close", lambda: None)()
-        loss_sum = float(torch.cat(losses).sum())
-        count = float(torch.cat(counts).sum())
+        loss_sum, count = watched(
+            "engine.sync", lambda: (float(torch.cat(losses).sum()),
+                                    float(torch.cat(counts).sum())))
         result = self.engine.finalize_metrics(states, loss_sum, count)
         if verbose:
             logger.info("validation: %s", result)
@@ -799,9 +819,7 @@ class TPUEstimator:
             preds = self.engine.predict_batch(batch.x)
             multi = isinstance(preds, (list, tuple))
             preds = tuple(preds) if multi else (preds,)
-            keep = (slice(None) if batch.w is None
-                    else batch.w.cpu().numpy() > 0)
-            host = tuple(p.cpu().numpy()[keep] for p in preds)
+            host = watched("engine.sync", _host_rows, preds, batch.w)
             outs.append(host if multi else host[0])
         if isinstance(outs[0], tuple):
             result = tuple(np.concatenate([o[i] for o in outs])

@@ -182,6 +182,9 @@ class _Handler(socketserver.BaseRequestHandler):
     def handle(self):
         st: _State = self.server.state  # type: ignore[attr-defined]
         reader = _Reader(self.request)
+        # a command's reply is gathered whole and sent with one sendall:
+        # an XREADGROUP of 256 entries is one write, not ~1,800
+        self._out: List[bytes] = []
         while True:
             try:
                 cmd = reader.read_reply()
@@ -189,22 +192,28 @@ class _Handler(socketserver.BaseRequestHandler):
                 return
             if not isinstance(cmd, list) or not cmd:
                 self._send(b"-ERR protocol error\r\n")
-                continue
-            name = cmd[0].upper()
+            else:
+                name = cmd[0].upper()
+                try:
+                    fn = getattr(self, "_cmd_" + name.decode().lower(), None)
+                    if fn is None:
+                        self._send(b"-ERR unknown command '%s'\r\n" % name)
+                    else:
+                        fn(st, cmd[1:])
+                except (ConnectionError, OSError):
+                    return
+                except Exception as e:  # command bug → error reply, keep
+                    self._out.clear()   # serving (no partial reply)
+                    self._send(b"-ERR %s\r\n" % str(e).encode())
             try:
-                fn = getattr(self, "_cmd_" + name.decode().lower(), None)
-                if fn is None:
-                    self._send(b"-ERR unknown command '%s'\r\n" % name)
-                else:
-                    fn(st, cmd[1:])
+                self.request.sendall(b"".join(self._out))
             except (ConnectionError, OSError):
                 return
-            except Exception as e:  # command bug → error reply, keep serving
-                self._send(b"-ERR %s\r\n" % str(e).encode())
+            self._out.clear()
 
     # --- reply helpers ---
     def _send(self, raw: bytes):
-        self.request.sendall(raw)
+        self._out.append(raw)
 
     def _simple(self, s: bytes):
         self._send(b"+%s\r\n" % s)

@@ -203,7 +203,7 @@ recommendation models, it
 * trains the JAX ``TextClassifier``'s defaults (news20's widths: 20
   classes, sequence 500, frozen 200-d GloVe vectors, cnn encoder 256,
   batch 128, Adagrad) for 2 epochs over a seeded synthetic corpus of
-  19,997 documents in news20's layout through ``TextSet``, with the
+  10,000 documents in news20's layout through ``TextSet``, with the
   holdout accuracy gate against the untrained control, a profiled epoch,
   a save and reload, the trainable table and the lstm and gru encoders
   (``text_classifier_news20``);
@@ -257,6 +257,30 @@ pipeline Estimator), it
   (``pipeline_estimator_minibatch``; no flash kernel launches on the GAN
   and pipeline paths).
 
+Then, after the kernels' timings, with the streaming plane and the
+training supervisor (``examples/streaming/online_ncf.py`` at NCF's
+MovieLens-1M widths, f32, Adam), it
+
+* trains 8 count windows of a drifting Redis request stream through
+  ``StreamingXShards`` and ``StreamingTrainer`` while a
+  ``StreamingReloader`` swaps each commit into a served copy: 8 reloads,
+  no capture after window 1, freshness p50/p99, and the probe user's
+  served ranking flips after the drift while a copy without the reloader
+  keeps its own (``streaming_ncf_online``, the main path);
+* trains the first 3 windows with 4 steps a dispatch: one CUDA graph
+  captured in window 1 and replayed after, the weights the eager run's,
+  while a thread predicts through every swap (``streaming_fused_windows``);
+* stops the trainer by SIGTERM while window 2 accumulates and resumes it
+  from its checkpoint: NCF and the linear model as the uninterrupted runs
+  (``streaming_resume``);
+* runs a 2-consumer ``StreamingFleet`` over a 2-partition stream with
+  ``FleetReloaders``, SIGKILLs one consumer (no record lost or trained
+  twice), and gates a linear model's commits with the
+  ``GuardrailEvaluator`` through a poisoned window (``streaming_fleet``);
+* fits NCF under ``TrainingSupervisor`` through a watchdog-tripped hang
+  and an injected device loss, as an unsupervised fit (``supervised_fit``;
+  no flash kernel launches on any of the five paths).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -278,6 +302,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 
@@ -527,10 +552,11 @@ TOL_ZOUWU = {"loss": TOL_STEP_LOSS, "grad": TOL_STEP_GRAD}
 # inside it; the JAX package's seeds 0-4 read 0.0240-0.0265 against
 # 0.0211-0.0234 (scripts/nyc_taxi_gate_reference.py). On the card (other
 # dropout draws) every seed passed: MTNetLite 0.0251-0.0294 against the
-# LSTM's 0.0219-0.0273 (H100 80GB HBM3, 700 W). Seeds 0-2 since PR 18,
-# whose TF-migration phases needed the ~25 s seeds 3-4 took (here and in
-# tcmf_real_data) to keep the whole smoke under 800 s.
-REAL_DATA_SEEDS = (0, 1, 2)
+# LSTM's 0.0219-0.0273 (H100 80GB HBM3, 700 W). Seeds 0-2 since the
+# TF-migration slice, whose phases needed the ~25 s seeds 3-4 took (here
+# and in tcmf_real_data) to keep the whole smoke under 800 s; seed 0
+# since the streaming slice, whose phases needed the ~22 s seeds 1-2 took.
+REAL_DATA_SEEDS = (0,)
 # AutoTS under the ASHA TrialRuntime (scheduler="asha", eta 3, grace 1):
 # each recipe of autots_trials at 5 random draws (x the batch-size grid of
 # 2: 10 trials a recipe) and a 9-epoch budget, so the rungs are [1, 3, 9];
@@ -539,8 +565,11 @@ REAL_DATA_SEEDS = (0, 1, 2)
 # ASHA_WINNER_FACTOR of the exhaustive best: the JAX suite's tolerance
 # (tests/test_trial_scheduler.py, test_auto_estimator_asha_end_to_end).
 # 3 draws (6 trials, 54 exhaustive epochs a recipe, rungs reporting 6, 2
-# and 1) since PR 18, which needed the ~45 s the other 2 draws took to
-# keep the whole smoke under 800 s.
+# and 1) since the TF-migration slice, which needed the ~45 s the other 2
+# draws took to keep the whole smoke under 800 s; the TCN recipe alone
+# since the streaming slice, which needed the LSTM recipe's ~42 s (its
+# last reading: 16 of 54 epochs, winner 1.073 x the exhaustive best; the
+# LSTM recipe still runs in autots_trials).
 ASHA_AUTOTS = dict(n_rand=3, epochs=9, eta=3, grace_period=1)
 ASHA_WINNER_FACTOR = 1.5
 # Pause/resume and SIGTERM resume through AutoEstimator's TrialModel on the
@@ -606,16 +635,17 @@ TOL_OD_RELOAD = 1e-2
 # The serving tier's processes (slice 12): the SSD300 above (OD's widths,
 # bf16 trunk, batch 64, 5 ms timeout, 100 detections) served by
 # ServingFleet worker processes on the one card over one MiniRedisServer
-# stream (claim_idle_ms 800), M = 1 and 4 (and 2 before PR 18, which
-# needed the ~25 s that leg took to keep the whole smoke near 800 s); a
-# client process sends a
+# stream (claim_idle_ms 800), M = 4 (1 and 2 as well before the
+# TF-migration and streaming slices, which needed the ~25 s and ~12 s
+# those legs took to keep the whole smoke under 800 s); a client process
+# sends a
 # warm-up of 64 requests a worker, then 256 uint8 requests as one burst.
 # A worker admits at most two batches (max_inflight 128, as the JAX
 # bench's fleet), so the backlog stays on the stream for every worker.
 # http_fleet: two HTTP frontends, 16 f32 JSON requests to 2 workers.
 # Answers are held with TOL_OD_SERVED_* (the workers' batches pad to other
 # buckets than the parent's predict chunks).
-FLEET = dict(workers=(1, 4), requests=256, warm_per_worker=64,
+FLEET = dict(workers=(4,), requests=256, warm_per_worker=64,
              claim_idle_ms=800, http_requests=16, frontends=2,
              live_timeout_s=300)
 # fleet_topology: the JAX bench's legs 1-3 (bench.py bench_serving_fleet)
@@ -3459,7 +3489,7 @@ def _study_events(logs_dir):
 
 
 def asha_autots_phase(card, df, dev="cuda"):
-    """Each AutoTS recipe at ASHA_AUTOTS through ``AutoTSTrainer.fit(...,
+    """AutoTS's TCN recipe at ASHA_AUTOTS through ``AutoTSTrainer.fit(...,
     scheduler="asha")`` on the card, then the same recipe and seed under
     the default scheduler (the exhaustive search). Every ASHA trial ends
     ``done`` on the leased device with the config the engine's seed gives;
@@ -3470,13 +3500,11 @@ def asha_autots_phase(card, df, dev="cuda"):
     ``trial_pruned`` for a trial the study ended paused) and its manifest
     ends ``completed``."""
     from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer
-    from analytics_zoo_tpu_torch.zouwu.config.recipe import (
-        LSTMGridRandomRecipe, TCNGridRandomRecipe)
+    from analytics_zoo_tpu_torch.zouwu.config.recipe import \
+        TCNGridRandomRecipe
     cfg = ASHA_AUTOTS
     leased = "cuda:0" if dev == "cuda" else "cpu"
-    recipes = [LSTMGridRandomRecipe(num_rand_samples=cfg["n_rand"],
-                                    epochs=cfg["epochs"]),
-               TCNGridRandomRecipe(num_rand_samples=cfg["n_rand"],
+    recipes = [TCNGridRandomRecipe(num_rand_samples=cfg["n_rand"],
                                    training_iteration=cfg["epochs"])]
     params = {"eta": cfg["eta"], "grace_period": cfg["grace_period"]}
     root = tempfile.mkdtemp(prefix="asha-autots-")
@@ -4545,12 +4573,13 @@ def od_hot_reload_phase(card, root):
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-def _report_launches(report_dir, model):
+def _report_launches(report_dir, model, method="predict"):
     """Has this process report its own flash-kernel launch counts (each
     wrapper's ``.launches``) in ``report_dir/launches-<pid>.json``: now,
-    after every ``model.predict`` that changed them, and at exit. A
+    after every ``model.<method>`` call (``predict``; a streaming
+    trainer's estimator: ``fit``) that changed them, and at exit. A
     SIGKILLed worker's file holds its counts as of its last finished
-    predict."""
+    call."""
     import atexit
 
     from analytics_zoo_tpu_torch.ops import attention as at
@@ -4566,15 +4595,15 @@ def _report_launches(report_dir, model):
             os.replace(path + ".tmp", path)
             written.update(counts)
 
-    predict = model.predict
+    call = getattr(model, method)
 
-    def counted_predict(*args, **kwargs):
+    def counted_call(*args, **kwargs):
         try:
-            return predict(*args, **kwargs)
+            return call(*args, **kwargs)
         finally:
             write()
 
-    model.predict = counted_predict
+    setattr(model, method, counted_call)
     write()
     atexit.register(write)
 
@@ -5582,7 +5611,7 @@ def _spread_or_none(xs):
 
 def kernels_line(errs, bwd_errs, serve_launches, train_launches,
                  fraud_launches, autots_launches, od_launches,
-                 slice_launches):
+                 slice_launches, late_paths=None):
     """Every kernel at the main paths' shape (B=32, S=128, H=12, D=64, f32,
     q/k/v strided views of the fused projection): the kernel's device time
     (``ms``: CUDA-graph replays in turns) and the time of the PyTorch call
@@ -5600,7 +5629,11 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
     profiler's record of the kernels on the card, graph replays
     included), and the TF-migration slice's (``tfpark_transformer_fit``
     and ``tfpark_vs_cpu`` launch each kernel on every block, the GAN and
-    pipeline paths none)."""
+    pipeline paths none). ``late_paths()`` runs after the timings and
+    returns more paths' counts (the streaming slice's): after its threads
+    and processes the profiler kept no device record of SDPA's backward
+    in a whole smoke (a probe's 5-matmul session kept 10 records before
+    the streaming phases and 5 after them; H100 80GB HBM3, 700 W)."""
     from analytics_zoo_tpu_torch.ops import attention as at
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -5651,6 +5684,8 @@ def kernels_line(errs, bwd_errs, serve_launches, train_launches,
         reps=10).items()}
     for fn, n in zip(kernels, kept):
         fn.launches = n     # timing launches are not the main paths'
+    if late_paths is not None:
+        slice_launches = {**slice_launches, **late_paths()}
 
     n_el = b * s * h * d * q.element_size()     # one (B, S, H, D) tensor
     n_row = b * h * s * 4                       # one (B*H, S) f32 vector
@@ -5793,9 +5828,10 @@ def serving_tier_paths(card):
 # samples/s over their wall time) and one epoch under torch.profiler
 # (device idle share). The fused run's final parameters are held against
 # the first eager run's: bit for bit where the two eager runs agree bit
-# for bit, else within TOL_GRAPH (see there). 2 timed epochs since PR 18
-# (3 before), to keep the whole smoke under 800 s.
-FUSED = dict(epochs=2, pin=4, fraud_batch=16384, keras_rows=65536,
+# for bit, else within TOL_GRAPH (see there). 2 timed epochs since the
+# TF-migration slice (3 before), 1 since the streaming slice, to keep the
+# whole smoke under 800 s.
+FUSED = dict(epochs=1, pin=4, fraud_batch=16384, keras_rows=65536,
              keras_batch=4096, ncf_rows=8 * 65536, ncf_batch=65536,
              autots_batch=64)
 # A 2-layer tiny BERT at pinned k = 4 (head size 64, so the flash kernels
@@ -6938,12 +6974,14 @@ def tcmf_featureset_paths(card):
 # 0.01, word2idx(remove_topN=10, max_words_num=20000) (ids 1-20,000, a table
 # of 20,001 rows), random_split([0.8, 0.2]). news20 and the GloVe vectors
 # are not in the repository: the corpus is seeded and synthetic, in
-# TextSet.read's layout (20 category folders, news20's 19,997 documents of
-# 150-400 tokens). Words come from a Zipf vocabulary of 24,000 words;
+# TextSet.read's layout (20 category folders of documents of 150-400
+# tokens: 10,000 documents, news20's 19,997 cut by half since the streaming
+# slice, whose phases needed the ~20 s of host stages the other half took,
+# to keep the whole smoke under 800 s). Words come from a Zipf vocabulary of 24,000 words;
 # each category over-weights 10 topic words of its own (a quarter of a
 # document's tokens), drawn from the vocabulary's middle ranks. The GloVe
 # file holds a seeded 200-d vector for every word.
-NEWS20 = dict(classes=20, docs=19997, vocab=24000, topic_words=10,
+NEWS20 = dict(classes=20, docs=10000, vocab=24000, topic_words=10,
               topic_share=0.25, min_len=150, max_len=400, seq=500, embed=200,
               filters=256, batch=128, epochs=2, lr=0.01, remove_top=10,
               max_words=20000, rnn_steps=16, seed=0)
@@ -8825,6 +8863,928 @@ def tfpark_paths(card):
     return {"tfpark_transformer_fit": main_path, **launches}
 
 
+# --- the streaming plane and the training supervisor -------------------------
+# examples/streaming/online_ncf.py at NCF_WIDTHS: NeuralCF's module (6,040
+# users, 3,706 items, 5 classes, embeddings 64, MLP 128/64/32, f32) under
+# TPUEstimator(loss="sparse_categorical_crossentropy", Adam). A producer
+# thread XADDs (user, item) -> rating-class records to MiniRedisServer
+# through RedisBroker; every other record comes from the probe user 0, who
+# gives item 0 a 4 and item 1 a 0 until the stream's midpoint and the
+# reverse after (the example's drift), the rest are uniform users, items
+# and classes. StreamingXShards closes count windows of 4,096 records (4
+# batches of 1,024): 8 windows, 32,768 records. That is the example at
+# windows of 16,384 and batch 4,096 cut by 4: the Python MiniRedisServer
+# moved 1,718 records/s through the phase on the card's host (a 16,384
+# window took 9.3 s of ingest, the phase 78 s, the group 186 s; NVIDIA
+# H100 80GB HBM3, 700 W). lr 0.05: each record is seen once, and the
+# point is to follow the drift within a few windows. A fifth of the
+# probe's ratings are noise (see _stream_arrays): with clean ones the
+# card's softmax saturated below the loss's 1e-7 clip by window 4 and the
+# drifted labels brought no gradient (the ranking never turned); with them
+# a CPU run reads expected ratings 3.61 / 0.42 after window 4 and 0.14 /
+# 3.44 after window 8, the smallest probability 0.005. Adam at this lr
+# turns the rounding of near-zero gradients into lr-sized steps: with
+# index_add_'s float atomics two runs of the same windows read 0.24 apart
+# (16,384-record windows, the one-window-on control 0.40), so the group
+# runs under torch.use_deterministic_algorithms (warn_only), whose
+# index_add_ sums in a fixed order (then 0.0). The records travel through a broker
+# host process (_BrokerHost): a MiniRedisServer and the producer threads.
+# The fleet's windows are 2,048 (2 batches), 2 a partition. The guard leg
+# trains the linear factory (dim 8, lr 0.01, gradients clipped to norm 1)
+# on windows of 1,024 (32 steps): 4 clean windows, one with its labels
+# scaled by 100, then clean windows until one is adopted (at most 4). Adam
+# carries the poisoned window's gradients into the next window's steps
+# through its moments, so the commits right after it still regress on
+# the holdout and are rejected too (holdout losses on the card: 0.80,
+# 0.064, 3.2e-4, 5.3e-5, poisoned 0.71, then 0.15, 2.3e-3 and 7.6e-5,
+# adopted); the clipping keeps that tail to a few windows. The supervised
+# fit is NCF on 8,192 rows of bench_ncf's pairs (8 steps an epoch, 4
+# epochs).
+STREAM = dict(batch=1024, window=4096, windows=8, lr=0.05, poll_s=0.1,
+              seed=19, fused_windows=3, fused_k=4, resume_windows=2,
+              linear_batch=256, linear_window=1024, fleet_window=2048,
+              fleet_windows=2, guard_batch=32, guard_window=1024,
+              guard_lr=0.01, guard_clip=1.0, guard_poison=100.0,
+              guard_clean=4, guard_recover=4, sup_rows=8192,
+              sup_epochs=4, sup_timeout_s=2.0, sup_stall_s=3.0)
+# A predict that ran while the reloader swapped weights answers with one
+# adopted state's weights: its probe outputs within this of that state's
+# own (the same module and batch on the card: the same kernels).
+TOL_SWAP_READ = 1e-6
+# The SIGTERM-resumed NCF stream against the uninterrupted one (the online
+# run's checkpoint after the same windows), and the supervised NCF fit
+# against an unsupervised one: the largest parameter difference relative
+# to that parameter's largest entry, as TOL_GRAPH (index_add_ atomics make
+# two eager runs differ). Controls: the uninterrupted run one window on,
+# the unsupervised run one epoch short, must miss. The linear model has no
+# atomics and is held bit for bit.
+TOL_STREAM_RESUME = 1e-5
+TOL_SUPERVISED = 1e-5
+
+
+def _stream_arrays(n, cfg=STREAM):
+    """The online NCF stream's first ``n`` records as arrays: pairs (n, 2)
+    int32 and rating classes (n,) int32; the drift at the full stream's
+    midpoint, whatever ``n`` (drawn for the whole stream, then cut)."""
+    rng = np.random.RandomState(cfg["seed"])
+    total = cfg["window"] * cfg["windows"]
+    pairs = np.stack([rng.randint(1, NCF_WIDTHS["user_count"] + 1, total),
+                      rng.randint(1, NCF_WIDTHS["item_count"] + 1, total)],
+                     -1).astype(np.int32)[:n]
+    labels = rng.randint(0, 5, total).astype(np.int32)[:n]
+    noisy = (rng.rand(total) < 0.2)[:n]
+    i = np.arange(0, n, 2)
+    item = (i // 2) % 2
+    loved = np.where(i < total // 2, 0, 1)
+    pairs[i, 0], pairs[i, 1] = 0, item
+    # a fifth of the probe's ratings are the background's uniform class:
+    # the softmax then never saturates past the loss's 1e-7 clip, under
+    # which the drifted labels would bring no gradient
+    labels[i] = np.where(noisy[i], labels[i], np.where(item == loved, 4, 0))
+    return pairs, labels
+
+
+class _Producer(threading.Thread):
+    """XADDs records [lo, hi) of (x, y) arrays through ``broker`` in stream
+    order, each stamped with its event time as it is sent; ``keyed``
+    stamps the row's user (column 0) as its partition key."""
+
+    def __init__(self, broker, x, y, lo, hi, first_id=None, keyed=False):
+        super().__init__(name="stream-producer", daemon=True)
+        self.broker, self.x, self.y = broker, x, y
+        self.lo, self.hi, self.keyed = lo, hi, keyed
+        self.first_id = lo if first_id is None else first_id
+        self.error = None
+
+    def run(self):
+        from analytics_zoo_tpu_torch.streaming import encode_record, seq_id
+        try:
+            for i in range(self.lo, self.hi):
+                self.broker.enqueue(seq_id(self.first_id + i - self.lo),
+                                    encode_record(
+                    self.x[i], self.y[i], event_time=time.time(),
+                    key=f"user:{int(self.x[i][0])}" if self.keyed
+                    else None))
+        except Exception as e:      # noqa: BLE001 — reported by "join"
+            self.error = repr(e)
+
+
+def _broker_host_main(conn):
+    """The streaming phases' broker host (a spawned process): a
+    MiniRedisServer, and the producer threads the parent asks for over
+    ``conn``, each with its own RedisBroker. The broker's and the
+    producers' Python work then does not share the trainer's interpreter
+    (in one process the XADD and XREADGROUP round trips held the ingest
+    near 900 records/s on the card's host)."""
+    from analytics_zoo_tpu_torch.serving.queue_api import (RedisBroker,
+                                                           make_broker)
+    from analytics_zoo_tpu_torch.serving.redis_protocol import \
+        MiniRedisServer
+    srv = MiniRedisServer(port=0).start()
+    conn.send((srv.host, srv.port))
+    producers = {}
+    try:
+        while True:
+            msg = conn.recv()
+            if msg[0] == "produce":
+                _, tag, target, x, y, lo, hi, first_id, keyed = msg
+                broker = (make_broker(target) if "://" in target
+                          else RedisBroker(srv.host, srv.port,
+                                           stream=target, group="train"))
+                producers[tag] = _Producer(broker, x, y, lo, hi, first_id,
+                                           keyed)
+                producers[tag].start()
+            elif msg[0] == "join":
+                prod = producers.pop(msg[1])
+                prod.join(msg[2])
+                conn.send(prod.error if not prod.is_alive()
+                          else "still running")
+            else:
+                break
+    finally:
+        srv.stop()
+
+
+class _BrokerHost:
+    """The parent's handle on ``_broker_host_main``: ``host``/``port`` of
+    its MiniRedisServer, ``produce`` (returns a handle whose ``finish``
+    waits for the records to be sent), ``stop``."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_broker_host_main, args=(child,),
+                                 daemon=True, name="stream-broker-host")
+        self._proc.start()
+        if not self._conn.poll(120):
+            self.stop()
+            fail("the streaming broker host never started")
+        self.host, self.port = self._conn.recv()
+        self._tags = 0
+
+    def produce(self, target, x, y, lo, hi, first_id=None, keyed=False):
+        """Send rows [lo, hi) to ``target``: a stream name (group
+        "train") or a broker spec (a partitioned router)."""
+        self._tags += 1
+        self._conn.send(("produce", self._tags, target, x, y, lo, hi,
+                         first_id, keyed))
+        return _Produced(self, self._tags)
+
+    def join(self, tag, timeout_s):
+        self._conn.send(("join", tag, timeout_s))
+        err = self._conn.recv()
+        if err is not None:
+            fail(f"stream producer: {err}")
+
+    def stop(self):
+        try:
+            self._conn.send(("stop",))
+        except (OSError, ValueError):
+            pass
+        self._proc.join(10)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(5)
+
+
+class _Produced:
+    def __init__(self, host, tag):
+        self.host, self.tag = host, tag
+
+    def finish(self, timeout_s=300):
+        self.host.join(self.tag, timeout_s)
+
+
+def _wait_for(cond, timeout_s, what):
+    deadline = time.time() + timeout_s
+    while not cond():
+        if time.time() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _stream_ncf_estimator(dev, model_dir=None, config=None):
+    """NeuralCF's module at NCF_WIDTHS (seed 0: the same weights every
+    call) under the online example's estimator; module-level, so a fleet
+    consumer's factory pickles across the spawn boundary."""
+    from analytics_zoo_tpu_torch.models.recommendation.neuralcf import \
+        NeuralCFNet
+    from analytics_zoo_tpu_torch.orca.learn.estimator import TPUEstimator
+    from analytics_zoo_tpu_torch.orca.learn.optimizers import Adam
+    return TPUEstimator(NeuralCFNet(**NCF_WIDTHS),
+                        loss="sparse_categorical_crossentropy",
+                        optimizer=Adam(lr=STREAM["lr"]), model_dir=model_dir,
+                        config=dict(config or {}), device=dev)
+
+
+def _counted_stream_estimator(report_dir, factory):
+    """A fleet consumer's estimator factory whose process reports its own
+    kernel launches after each window's ``fit`` (``_report_launches``)."""
+    est = factory()
+    _report_launches(report_dir, est, method="fit")
+    return est
+
+
+_PROBE = np.array([[0, 0], [0, 1]], np.int32)     # user 0 x items 0 / 1
+
+
+def _probe_scores(model):
+    """The served expected rating of the probe user for items 0 and 1."""
+    probs = model.predict(_PROBE)
+    return [float(v) for v in probs @ np.arange(5, dtype=np.float32)]
+
+
+def _ckpt_params(model_dir, step):
+    from analytics_zoo_tpu_torch.ckpt import format as fmt
+    state = fmt.load_checkpoint_dir(os.path.join(model_dir, f"ckpt-{step}"))
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in state["params"].items()}
+
+
+def _est_params(est):
+    return {k: v.detach().cpu().clone()
+            for k, v in est.module.state_dict().items()}
+
+
+def streaming_ncf_online_phase(card, root, srv, dev="cuda", cfg=STREAM):
+    """The main path: the online example at NCF_WIDTHS. The trainer runs
+    one window a call, and the served copy's StreamingReloader (its own
+    thread, poll ``poll_s``) must adopt each commit before the next
+    window: 8 reloads. Prints records/s trained over the 8 windows' wall
+    time (ingest from the live producer included), the median window's
+    train and commit seconds, freshness p50/p99 (newest trained event ->
+    adopted), reloads, captures after window 1, and the probe's served
+    expected ratings cold, at the drift (after window 4) and at the end;
+    the ranking must flip, and a served copy without a reloader (the
+    control) keeps its ranking. Returns the run's model_dir (the
+    checkpoint after every window: the eager reference of later phases)."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving.queue_api import RedisBroker
+    from analytics_zoo_tpu_torch.streaming import (StreamingReloader,
+                                                   StreamingTrainer,
+                                                   StreamingXShards)
+    total = cfg["window"] * cfg["windows"]
+    t_gen = time.perf_counter()
+    pairs, labels = _stream_arrays(total, cfg)
+    gen_s = time.perf_counter() - t_gen
+    d = os.path.join(root, "online")
+    est = _stream_ncf_estimator(dev, d)
+    served = InferenceModel(device=dev).load_module(
+        copy.deepcopy(est.module))
+    control = InferenceModel(device=dev).load_module(
+        copy.deepcopy(est.module))
+    src = StreamingXShards(
+        RedisBroker(srv.host, srv.port, stream="ncf", group="train"),
+        batch_size=cfg["batch"], window_records=cfg["window"],
+        window_age_s=600.0, poll_timeout_s=0.05)
+    tr = StreamingTrainer(est, src, d)
+    rel = StreamingReloader(served, d, poll_s=cfg["poll_s"],
+                            start_at=-1, stats=src.stats)
+    cold = _probe_scores(served)
+    rel.start()
+    prod = srv.produce("ncf", pairs, labels, 0, total)
+    windows, mid, mid_control = [], None, None
+    t0 = time.perf_counter()
+    for k in range(cfg["windows"]):
+        before = src.stats.snapshot()
+        tr.run(max_windows=1, idle_timeout_s=60.0)
+        after = src.stats.snapshot()
+        if after["windows"] != k + 1:
+            fail(f"streaming_ncf_online: window {k + 1} did not close")
+        _wait_for(lambda: rel.reload_count >= k + 1, 30,
+                  f"the reloader to adopt window {k + 1}")
+        windows.append({key: after[key] - before[key] for key in (
+            "ingest_s", "assemble_s", "train_s", "commit_s")})
+        windows[-1]["records_per_s"] = after["last_records_per_s"]
+        if k + 1 == cfg["windows"] // 2:
+            mid = _probe_scores(served)
+            mid_control = _probe_scores(control)
+    wall = time.perf_counter() - t0
+    prod.finish()
+    end = _probe_scores(served)
+    end_control = _probe_scores(control)
+    rel.stop()
+    snap = src.stats.snapshot()
+    p50, p99 = rel.freshness_percentiles()
+    recompiles = tr.recompiles_after_warm()
+    cursor = tr.cursor.to_dict()
+    est.shutdown()
+    src.close()
+    med = {key: statistics.median(w[key] for w in windows)
+           for key in ("ingest_s", "train_s", "commit_s")}
+    flipped = mid[0] > mid[1] and end[1] > end[0]
+    control_flipped = (mid_control[0] > mid_control[1]) != \
+        (end_control[0] > end_control[1])
+    emit({"phase": "streaming_ncf_online", "nvidia_smi": card,
+          "config": cfg, "widths": NCF_WIDTHS, "records": total,
+          "host_records_s": gen_s,
+          "records_per_s_trained": snap["records_trained"] / wall,
+          "wall_s": wall, "median_window_train_s": med["train_s"],
+          "median_window_commit_s": med["commit_s"],
+          "median_window_ingest_s": med["ingest_s"], "windows": windows,
+          "freshness_p50_s": p50, "freshness_p99_s": p99,
+          "reloads": snap["reloads"],
+          "recompiles_after_warm": recompiles, "cursor": cursor,
+          "probe_expected_rating": {"cold": cold, "after_window_4": mid,
+                                    "end": end},
+          "control_expected_rating": {"after_window_4": mid_control,
+                                      "end": end_control},
+          "ranking_flipped": flipped,
+          "control_ranking_flipped": control_flipped})
+    if snap["windows"] != cfg["windows"] or \
+            snap["records_trained"] != total or \
+            snap["reloads"] != cfg["windows"]:
+        fail(f"streaming_ncf_online: {snap['windows']} windows, "
+             f"{snap['records_trained']} records, {snap['reloads']} "
+             f"reloads")
+    if recompiles != 0 or p50 is None or p99 is None:
+        fail(f"streaming_ncf_online: {recompiles} captures after window 1, "
+             f"freshness {p50} / {p99}")
+    if not all(math.isfinite(v) for v in cold + mid + end):
+        fail(f"streaming_ncf_online: served scores {cold} {mid} {end}")
+    if not flipped or control_flipped:
+        fail(f"streaming_ncf_online: the probe's ranking {mid} -> {end} "
+             f"(must flip), the control's {mid_control} -> {end_control} "
+             f"(must not)")
+    return {"model_dir": d, "steps_per_window": cfg["window"] // cfg["batch"]}
+
+
+def streaming_fused_windows_phase(card, root, online, srv, dev="cuda",
+                                  cfg=STREAM):
+    """The online loop's first ``fused_windows`` windows at
+    ``steps_per_dispatch`` pinned to ``fused_k`` (a window is one fused
+    group): window 1 captures the one train graph (its group runs eagerly,
+    then is captured) and later windows replay it. A thread predicts the
+    probe batch on a served copy all along while its reloader swaps each
+    commit in: every answer must be one adopted state's (TOL_SWAP_READ),
+    never a half-swapped module's. The fused weights are held against the
+    online (eager) run's after as many windows within TOL_GRAPH["ncf"];
+    the control, the eager run one window on, must miss."""
+    from analytics_zoo_tpu_torch.orca.learn import graphs
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving.queue_api import RedisBroker
+    from analytics_zoo_tpu_torch.streaming import (StreamingReloader,
+                                                   StreamingTrainer,
+                                                   StreamingXShards)
+    n = cfg["window"] * cfg["fused_windows"]
+    pairs, labels = _stream_arrays(n, cfg)
+    d = os.path.join(root, "fused")
+    probe = np.concatenate([_PROBE, pairs[:62]])     # one 64-row bucket
+    seen, stop = [], threading.Event()
+    try:
+        est = _stream_ncf_estimator(dev, d, {"steps_per_dispatch":
+                                             cfg["fused_k"]})
+        init = copy.deepcopy(est.module)
+        served = InferenceModel(device=dev).load_module(
+            copy.deepcopy(est.module))
+        src = StreamingXShards(
+            RedisBroker(srv.host, srv.port, stream="fused", group="train"),
+            batch_size=cfg["batch"], window_records=cfg["window"],
+            window_age_s=600.0, poll_timeout_s=0.05)
+        tr = StreamingTrainer(est, src, d)
+        rel = StreamingReloader(served, d, poll_s=0.05, start_at=-1).start()
+
+        def predict_loop():
+            while not stop.is_set():
+                seen.append(served.predict(probe))
+
+        reader = threading.Thread(target=predict_loop, daemon=True,
+                                  name="stream-reader")
+        captures0, replays0 = graphs.CAPTURES["train"], \
+            graphs.REPLAYS["train"]
+        reader.start()
+        prod = srv.produce("fused", pairs, labels, 0, n)
+        tr.run(max_windows=1, idle_timeout_s=60.0)
+        captures1 = graphs.CAPTURES["train"]
+        tr.run(max_windows=cfg["fused_windows"] - 1, idle_timeout_s=60.0)
+        prod.finish()
+        steps = est.engine.step
+        _wait_for(lambda: rel.reload_count >= 1 and
+                  served.ckpt_stats().get("last_reload_step") == steps, 30,
+                  "the reloader to adopt the last window")
+        time.sleep(0.1)             # the reader reads the last weights too
+        stop.set()
+        reader.join(30)
+        rel.stop()
+        captures = {"in_window_1": captures1 - captures0,
+                    "after_window_1": graphs.CAPTURES["train"] - captures1}
+        replays = graphs.REPLAYS["train"] - replays0
+        fused = _est_params(est)
+        fuse, recompiles = est.fuse, tr.recompiles_after_warm()
+        est.shutdown()
+        src.close()
+        # what the reader may have seen: the initial weights and each
+        # committed window's, answered on the card by the same module
+        spw = online["steps_per_window"]
+        states = [None] + [spw * (w + 1) for w in range(cfg["fused_windows"])]
+        expect = []
+        for step in states:
+            m = copy.deepcopy(init)
+            if step is not None:
+                m.load_state_dict(_ckpt_params(d, step))
+            expect.append(InferenceModel(device=dev).load_module(m)
+                          .predict(probe))
+    finally:
+        stop.set()
+    dist = [min(float(np.abs(o - e).max()) for e in expect) for o in seen]
+    which = sorted({int(np.argmin([np.abs(o - e).max() for e in expect]))
+                    for o in seen})
+    eager_dir = online["model_dir"]
+    at = online["steps_per_window"] * cfg["fused_windows"]
+    eager = _ckpt_params(eager_dir, at)
+    rel_err = _max_param_rel(fused, eager)
+    control = _max_param_rel(_ckpt_params(
+        eager_dir, at + online["steps_per_window"]), eager)
+    on_card = torch.device(dev).type == "cuda"
+    emit({"phase": "streaming_fused_windows", "nvidia_smi": card,
+          "windows": cfg["fused_windows"], "steps_per_dispatch": fuse,
+          "captures": captures, "graph_replays": replays,
+          "recompiles_after_warm": recompiles,
+          "graph_vs_eager": rel_err, "control": control,
+          "limit": TOL_GRAPH["ncf"], "concurrent_predicts": len(seen),
+          "predict_worst_distance": max(dist) if dist else None,
+          "predict_limit": TOL_SWAP_READ, "states_seen": which})
+    if fuse != cfg["fused_k"] or recompiles != 0:
+        fail(f"streaming_fused_windows: fuse {fuse}, {recompiles} captures "
+             f"after window 1")
+    if on_card and (captures != {"in_window_1": 1, "after_window_1": 0}
+                    or replays != cfg["fused_windows"] - 1):
+        fail(f"streaming_fused_windows: captures {captures}, {replays} "
+             f"replays (one capture in window 1, a replay a later window)")
+    if not rel_err <= TOL_GRAPH["ncf"] < control:
+        fail(f"streaming_fused_windows: graph vs eager {rel_err}, control "
+             f"{control}, limit {TOL_GRAPH['ncf']}")
+    if not seen or max(dist) > TOL_SWAP_READ or len(which) < 2:
+        fail(f"streaming_fused_windows: {len(seen)} concurrent predicts, "
+             f"worst distance {max(dist) if dist else None} from an "
+             f"adopted state, states seen {which}")
+
+
+def _interrupted_stream(factory, x, y, n_first, n, batch, window, windows,
+                        d, stream, srv):
+    """Trains ``windows`` windows of (x, y) in ``d``, stopped by a SIGTERM
+    (a preemption notice) while window 2 accumulates after ``n_first``
+    records and resumed from ``d`` by a fresh estimator. Returns the
+    resumed estimator's parameters and the two runs' stats."""
+    from analytics_zoo_tpu_torch.serving.queue_api import RedisBroker
+    from analytics_zoo_tpu_torch.streaming import (StreamingTrainer,
+                                                   StreamingXShards)
+    srv.produce(stream, x, y, 0, n_first).finish()
+    est = factory(d)
+    src = StreamingXShards(RedisBroker(srv.host, srv.port, stream=stream,
+                                       group="train"),
+                           batch_size=batch, window_records=window,
+                           window_age_s=600.0, poll_timeout_s=0.05,
+                           claim_size=window)
+    tr = StreamingTrainer(est, src, d)
+
+    def notice():
+        _wait_for(lambda: src.stats.snapshot()["windows"] >= 1 and
+                  src.stats.snapshot()["records_in"] >= n_first, 60,
+                  "window 2 to accumulate")
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    killer = threading.Thread(target=notice, daemon=True)
+    killer.start()
+    tr.run(max_windows=windows, idle_timeout_s=60.0)
+    stopped = time.time()
+    killer.join(60)
+    first = src.stats.snapshot()
+    est.shutdown()
+    src.close()
+    srv.produce(stream, x, y, n_first, n).finish()
+    est2 = factory(d)
+    # the resumed consumer's first claim takes back every unacked claim of
+    # the stopped one (idle past the bound, one XAUTOCLAIM: claim_size
+    # covers them) ahead of the fresh entries, so window 2 is composed in
+    # stream order, as the uninterrupted run composed it
+    time.sleep(max(0.0, 1.2 - (time.time() - stopped)))
+    src2 = StreamingXShards(RedisBroker(srv.host, srv.port, stream=stream,
+                                        group="train", claim_idle_ms=1000),
+                            batch_size=batch, window_records=window,
+                            window_age_s=600.0, poll_timeout_s=0.05,
+                            claim_size=window)
+    tr2 = StreamingTrainer(est2, src2, d)
+    resumed = tr2.resume()
+    cursor0 = tr2.cursor.window
+    tr2.run(max_windows=windows - cursor0, idle_timeout_s=60.0)
+    params = _est_params(est2)
+    second = src2.stats.snapshot()
+    est2.shutdown()
+    src2.close()
+    return params, {"windows_before_notice": first["windows"],
+                    "resumed": resumed, "resumed_at_window": cursor0,
+                    "windows_after": second["windows"],
+                    "records_deduped": second["records_deduped"],
+                    "records_trained": first["records_trained"]
+                    + second["records_trained"]}
+
+
+def streaming_resume_phase(card, root, online, srv, dev="cuda", cfg=STREAM):
+    """A SIGTERM while window 2 accumulates stops the trainer (window 1
+    committed, the half window unacked), and a fresh estimator resumes
+    from model_dir and finishes: NCF against the online run's checkpoint
+    after as many windows within TOL_STREAM_RESUME (control: that run one
+    window on); the linear factory's model against an uninterrupted run
+    of its records, bit for bit."""
+    from analytics_zoo_tpu_torch.serving.queue_api import RedisBroker
+    from analytics_zoo_tpu_torch.streaming import (StreamingTrainer,
+                                                   StreamingXShards)
+    from analytics_zoo_tpu_torch.streaming.fleet import \
+        linear_estimator_factory
+    wins = cfg["resume_windows"]
+    n = cfg["window"] * wins
+    pairs, labels = _stream_arrays(n, cfg)
+    ncf, ncf_info = _interrupted_stream(
+        lambda d: _stream_ncf_estimator(dev, d), pairs, labels,
+        cfg["window"] + cfg["window"] // 2, n, cfg["batch"],
+        cfg["window"], wins, os.path.join(root, "resume-ncf"), "rncf",
+        srv)
+    rng = np.random.RandomState(cfg["seed"])
+    ln = cfg["linear_window"] * wins
+    lx = rng.rand(ln, 8).astype(np.float32)
+    ly = (lx @ (np.arange(8, dtype=np.float32) / 8)).astype(np.float32)
+    lin_factory = partial(linear_estimator_factory, dim=8, device=dev)
+    lin, lin_info = _interrupted_stream(
+        lambda d: lin_factory(), lx, ly,
+        cfg["linear_window"] + cfg["linear_window"] // 2, ln,
+        cfg["linear_batch"], cfg["linear_window"], wins,
+        os.path.join(root, "resume-linear"), "rlin", srv)
+    # the linear model's uninterrupted run
+    srv.produce("rlin-ref", lx, ly, 0, ln).finish()
+    est = lin_factory()
+    src = StreamingXShards(RedisBroker(srv.host, srv.port,
+                                       stream="rlin-ref", group="train"),
+                           batch_size=cfg["linear_batch"],
+                           window_records=cfg["linear_window"],
+                           window_age_s=600.0, poll_timeout_s=0.05)
+    StreamingTrainer(est, src, os.path.join(root, "resume-lin-ref")).run(
+        max_windows=wins, idle_timeout_s=60.0)
+    lin_ref = _est_params(est)
+    est.shutdown()
+    src.close()
+    spw = online["steps_per_window"]
+    eager = _ckpt_params(online["model_dir"], spw * wins)
+    rel_err = _max_param_rel(ncf, eager)
+    control = _max_param_rel(_ckpt_params(online["model_dir"],
+                                          spw * (wins + 1)), eager)
+    lin_equal = all(torch.equal(lin[k], lin_ref[k]) for k in lin_ref)
+    emit({"phase": "streaming_resume", "nvidia_smi": card, "windows": wins,
+          "ncf": ncf_info, "ncf_vs_uninterrupted": rel_err,
+          "ncf_control": control, "ncf_limit": TOL_STREAM_RESUME,
+          "linear": lin_info, "linear_bit_identical": lin_equal})
+    for info, window in ((ncf_info, cfg["window"]),
+                         (lin_info, cfg["linear_window"])):
+        if info["windows_before_notice"] != 1 or not info["resumed"] or \
+                info["resumed_at_window"] != 1 or \
+                info["records_trained"] != window * wins:
+            fail(f"streaming_resume: {info}")
+    if not rel_err <= TOL_STREAM_RESUME < control:
+        fail(f"streaming_resume: NCF resumed vs uninterrupted {rel_err}, "
+             f"control {control}, limit {TOL_STREAM_RESUME}")
+    if not lin_equal:
+        fail("streaming_resume: the resumed linear model is not the "
+             "uninterrupted one bit for bit")
+
+
+def _fleet_keyed_records(n_per, parts, seed):
+    """Background NCF records keyed by user, ``n_per`` to each partition,
+    in one id order: pairs, labels, partitions."""
+    from analytics_zoo_tpu_torch.streaming import partition_for
+    rng = np.random.RandomState(seed)
+    users = np.arange(1, NCF_WIDTHS["user_count"] + 1)
+    part = np.array([partition_for(f"user:{u}", parts) for u in users])
+    rows, counts = [], [0] * parts
+    while min(counts) < n_per:
+        u = int(rng.choice(users))
+        k = int(part[u - 1])
+        if counts[k] < n_per:
+            rows.append((u, rng.randint(1, NCF_WIDTHS["item_count"] + 1),
+                         rng.randint(0, 5), k))
+            counts[k] += 1
+    a = np.array(rows)
+    return (a[:, :2].astype(np.int32), a[:, 2].astype(np.int32),
+            a[:, 3].astype(np.int32))
+
+
+def _guard_leg(dev, root, srv, cfg):
+    """The guardrail on the linear factory: clean windows are adopted, a
+    window whose labels are scaled by ``guard_poison`` commits and is
+    rejected (its step never reaches the served model), and a later clean
+    window's commit is adopted (see STREAM's comment)."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving.queue_api import RedisBroker
+    from analytics_zoo_tpu_torch.streaming import (FleetReloaders,
+                                                   GuardrailEvaluator,
+                                                   StreamingTrainer,
+                                                   StreamingXShards,
+                                                   module_loss_scorer)
+    from analytics_zoo_tpu_torch.streaming.fleet import \
+        linear_estimator_factory
+    w_true = np.arange(8, dtype=np.float32) / 8
+    rng = np.random.RandomState(cfg["seed"] + 1)
+    est = linear_estimator_factory(dim=8, lr=cfg["guard_lr"], device=dev)
+    est.set_l2_norm_gradient_clipping(cfg["guard_clip"])
+    d = os.path.join(root, "guard")
+    guard = GuardrailEvaluator(module_loss_scorer(copy.deepcopy(est.module)),
+                               holdout_records=64, min_holdout=32,
+                               regression=0.5, baseline_window=8)
+    for _ in range(64):
+        x = rng.normal(size=8).astype(np.float32)
+        guard.observe(x, np.float32(x @ w_true))
+    served = InferenceModel(device=dev).load_module(
+        copy.deepcopy(est.module))
+    fr = FleetReloaders({0: served}, d, poll_s=60, start_at=-1,
+                        guards={0: guard})
+    src = StreamingXShards(RedisBroker(srv.host, srv.port, stream="guard",
+                                       group="train"),
+                           batch_size=cfg["guard_batch"],
+                           window_records=cfg["guard_window"],
+                           window_age_s=600.0, poll_timeout_s=0.05)
+    tr = StreamingTrainer(est, src, os.path.join(d, "p0"))
+    seq = [0]
+
+    def window(poison):
+        x = rng.normal(size=(cfg["guard_window"], 8)).astype(np.float32)
+        y = (x @ w_true) * (cfg["guard_poison"] if poison else 1.0)
+        srv.produce("guard", x, y.astype(np.float32), 0, len(x),
+                    first_id=seq[0]).finish()
+        seq[0] += len(x)
+        tr.run(max_windows=1, idle_timeout_s=30.0)
+        return int(est.engine.step), fr.poll_now(), guard.last_score
+
+    legs = [("clean",) + window(False) for _ in range(cfg["guard_clean"])]
+    legs.append(("poisoned",) + window(True))
+    for _ in range(cfg["guard_recover"]):
+        legs.append(("clean",) + window(False))
+        if legs[-1][2]:
+            break
+    snap = fr.snapshot()[0]
+    fr.stop()
+    est.shutdown()
+    src.close()
+    return {"legs": legs, "accepted": snap["guard_accepted"],
+            "rejected": snap["guard_rejected"],
+            "adopted_step": served.ckpt_stats().get("last_reload_step")}
+
+
+def streaming_fleet_phase(card, root, srv, dev="cuda", cfg=STREAM):
+    """A StreamingFleet of 2 NCF trainer processes over a 2-partition
+    Redis stream keyed by user, with FleetReloaders adopting each
+    partition's commits into a served copy. Consumer 0 is SIGKILLed after
+    its first commit and respawned; each partition's final cursor must
+    count exactly the records routed to it and end at its last id (none
+    lost, none trained twice). Then the guard leg (``_guard_leg``).
+    Returns the consumers' own flash-kernel launch counts."""
+    from analytics_zoo_tpu_torch.models.recommendation.neuralcf import \
+        NeuralCFNet
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.streaming import (FleetReloaders,
+                                                   StreamingFleet, seq_id)
+    parts, n_per = 2, cfg["fleet_window"] * cfg["fleet_windows"]
+    pairs, labels, part = _fleet_keyed_records(n_per, parts, cfg["seed"])
+    report_dir = os.path.join(root, "fleet-report")
+    os.makedirs(report_dir, exist_ok=True)
+    froot = os.path.join(root, "fleet")
+    spec = f"redis://{srv.host}:{srv.port}/sfleet?claim_idle_ms=500"
+    fleet = StreamingFleet(
+        partial(_counted_stream_estimator, report_dir,
+                partial(_stream_ncf_estimator, dev)), spec, froot,
+        consumers=parts, batch_size=cfg["batch"],
+        window_records=cfg["fleet_window"], window_age_s=600.0,
+        poll_timeout_s=0.05,
+        heartbeat_s=0.2, consumer_ttl_s=5.0, poll_s=0.1)
+    fr = None
+    try:
+        router = spec + f"&partitions={parts}"
+        half = len(pairs) // 2
+        t0 = time.perf_counter()
+        srv.produce(router, pairs, labels, 0, half, keyed=True).finish()
+        fleet.start()
+        if not fleet.wait_live(parts, timeout_s=120):
+            fail(f"streaming_fleet: consumers never went live: "
+                 f"{fleet.metrics()}")
+        live_s = time.perf_counter() - t0
+        models = {k: InferenceModel(device=dev).load_module(
+            NeuralCFNet(**NCF_WIDTHS)) for k in range(parts)}
+        fr = FleetReloaders(models, froot, poll_s=0.1, start_at=-1).start()
+        _wait_for(lambda: _committed_cursor(fleet.partition_root(0))
+                  is not None, 120, "consumer 0's first commit")
+        if not fleet.kill_consumer(0):
+            fail("streaming_fleet: consumer 0 was not alive to kill")
+        srv.produce(router, pairs, labels, half, len(pairs), first_id=half,
+                    keyed=True).finish()
+        _wait_for(lambda: fleet.restarts >= 1, 120, "consumer 0's respawn")
+        # the consumers run until stopped: done once every partition's
+        # committed cursor holds all its records
+        _wait_for(lambda: all(
+            (_committed_cursor(fleet.partition_root(k)) or {}).get(
+                "records", 0) >= n_per for k in range(parts)), 180,
+            "every partition's records to commit")
+        snap = fleet.stop()
+        wall = time.perf_counter() - t0
+        cursors = {k: _committed_cursor(fleet.partition_root(k))
+                   for k in range(parts)}
+        fr.poll_now()
+        adopted = {k: fr.snapshot()[k].get("last_reload_step")
+                   for k in range(parts)}
+        fresh = fr.freshness_p99_by_consumer()
+        fr.stop()
+        fr = None
+        guard = _guard_leg(dev, root, srv, cfg)
+    finally:
+        if fr is not None:
+            fr.stop()
+        if fleet.alive():
+            fleet.stop()
+    _, worker_launches = _worker_launches(report_dir)
+    ids = [seq_id(i) for i in range(len(pairs))]
+    want = {k: (int((part == k).sum()),
+                [ids[i] for i in np.flatnonzero(part == k)][-1])
+            for k in range(parts)}
+    emit({"phase": "streaming_fleet", "nvidia_smi": card,
+          "consumers": parts, "records": len(pairs),
+          "records_per_partition": n_per, "spawn_to_live_s": live_s,
+          "wall_s": wall, "restarts": snap["restarts"],
+          "windows_total": snap["windows_total"],
+          "cursors": cursors, "adopted_steps": adopted,
+          "freshness_p99_by_consumer": fresh, "guard": guard,
+          "consumer_launches": worker_launches})
+    if snap["restarts"] != 1:
+        fail(f"streaming_fleet: {snap['restarts']} restarts after one "
+             f"SIGKILL")
+    for k, (count, last) in want.items():
+        cur = cursors[k] or {}
+        if cur.get("records") != count or cur.get("last_id") != last:
+            fail(f"streaming_fleet: partition {k} cursor {cur}, want "
+                 f"{count} records ending at {last}")
+    if any(adopted[k] is None for k in adopted):
+        fail(f"streaming_fleet: adopted steps {adopted}")
+    legs = guard["legs"]
+    poisoned = [leg for leg in legs if leg[0] == "poisoned"]
+    before = legs[:cfg["guard_clean"]]
+    if not all(leg[2] for leg in before) or poisoned[0][2] or \
+            not legs[-1][2] or legs[-1][0] != "clean" or \
+            guard["adopted_step"] != legs[-1][1]:
+        fail(f"streaming_fleet: guard leg {guard}: the clean commits must "
+             f"be adopted, the poisoned one rejected, and a later clean "
+             f"one adopted")
+    return worker_launches
+
+
+def _committed_cursor(root):
+    from analytics_zoo_tpu_torch.ckpt import format as fmt
+    dirs = fmt.loadable_step_dirs(root)
+    return fmt.manifest_meta(dirs[-1][1]).get("stream") if dirs else None
+
+
+def _fault_schedule(plan):
+    """A fault registry firing at ``engine.dispatch`` by call number:
+    ``plan`` maps a call to ``("delay", s)`` (a hang the watchdog must
+    trip) or ``("raise",)`` (an injected device loss). A thread that hung
+    is not counted again (a real hang never returns)."""
+    from analytics_zoo_tpu_torch.resilience import faults
+
+    class Schedule(faults.FaultRegistry):
+        def __init__(self):
+            super().__init__(seed=0)
+            self.calls, self.hung = 0, []
+            self.guard = threading.Lock()
+
+        def fire(self, site):
+            if site != "engine.dispatch":
+                return
+            me = threading.current_thread()
+            with self.guard:
+                if any(t is me for t in self.hung):
+                    return
+                self.calls += 1
+                act = plan.get(self.calls)
+                if act is not None and act[0] == "delay":
+                    self.hung.append(me)
+            if act is None:
+                return
+            if act[0] == "delay":
+                time.sleep(act[1])
+                return
+            raise faults.InjectedFault(
+                f"injected device loss at {site} (call {self.calls})")
+
+    return faults.inject(registry=Schedule())
+
+
+def supervised_fit_phase(card, root, dev="cuda", cfg=STREAM):
+    """TrainingSupervisor over the online example's NCF estimator factory
+    (NCF_WIDTHS, steps_per_dispatch 1), 4 epochs of 8 steps with
+    ZOO_DISPATCH_TIMEOUT_S at ``sup_timeout_s``: epoch 2's fifth step
+    stalls ``sup_stall_s`` in the dispatch (the watchdog trips: a hang),
+    epoch 3's fifth step raises an injected device loss; each restarts
+    from the last committed epoch. The report must read 2 restarts, 1
+    hang, 1 crash, completed; the final weights are held against an
+    unsupervised 4-epoch fit within TOL_SUPERVISED, whose 3-epoch weights
+    (the control) must miss."""
+    from analytics_zoo_tpu_torch.resilience import TrainingSupervisor
+    pairs, ratings = _ncf_data(cfg["sup_rows"], seed=3)
+    data = {"x": pairs, "y": ratings}
+    steps = cfg["sup_rows"] // cfg["batch"]
+    plan = {steps + steps // 2: ("delay", cfg["sup_stall_s"]),
+            3 * steps: ("raise",)}
+    d = os.path.join(root, "supervised")
+    factory = partial(_stream_ncf_estimator, dev, d,
+                      {"steps_per_dispatch": 1})
+    old = os.environ.get("ZOO_DISPATCH_TIMEOUT_S")
+    os.environ["ZOO_DISPATCH_TIMEOUT_S"] = str(cfg["sup_timeout_s"])
+    try:
+        sup = TrainingSupervisor(factory, max_restarts=3, poll_s=0.02)
+        sup.retry_policy.base_delay_s = 0.05
+        t0 = time.perf_counter()
+        with _fault_schedule(plan):
+            rep = sup.fit(data, epochs=cfg["sup_epochs"],
+                          batch_size=cfg["batch"])
+        wall = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("ZOO_DISPATCH_TIMEOUT_S", None)
+        else:
+            os.environ["ZOO_DISPATCH_TIMEOUT_S"] = old
+    got = _est_params(sup.estimator)
+    sup.estimator.shutdown()
+    ref = partial(_stream_ncf_estimator, dev, None,
+                  {"steps_per_dispatch": 1})()
+    ref.fit(data, epochs=cfg["sup_epochs"] - 1, batch_size=cfg["batch"],
+            verbose=False)
+    short = _est_params(ref)
+    ref.fit(data, epochs=1, batch_size=cfg["batch"], verbose=False,
+            initial_epoch=cfg["sup_epochs"] - 1)
+    want = _est_params(ref)
+    rel_err, control = _max_param_rel(got, want), _max_param_rel(short, want)
+    keys = ("restarts", "hangs", "crashes", "steps_replayed", "completed",
+            "downtime_s")
+    emit({"phase": "supervised_fit", "nvidia_smi": card,
+          "widths": NCF_WIDTHS, "epochs": cfg["sup_epochs"],
+          "steps_per_epoch": steps, "timeout_s": cfg["sup_timeout_s"],
+          "stall_s": cfg["sup_stall_s"], "plan": {str(k): list(v)
+                                                  for k, v in plan.items()},
+          "report": {k: rep[k] for k in keys},
+          "failures": [f["kind"] + ": " + f["error"]
+                       for f in rep["failures"]],
+          "wall_s": wall, "vs_unsupervised": rel_err, "control": control,
+          "limit": TOL_SUPERVISED})
+    if (rep["restarts"], rep["hangs"], rep["crashes"]) != (2, 1, 1) or \
+            not rep["completed"]:
+        fail(f"supervised_fit: report {[rep[k] for k in keys]}")
+    if not rel_err <= TOL_SUPERVISED < control:
+        fail(f"supervised_fit: vs unsupervised {rel_err}, control "
+             f"{control}, limit {TOL_SUPERVISED}")
+
+
+def streaming_paths(card):
+    """The streaming slice's phases, each driven with the flash kernels'
+    counts at 0 (a fleet path's count adds its consumers' own reports):
+    none may launch a flash kernel (NCF and the linear model hold no
+    attention). Returns the counts by path."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    kernels = [getattr(at, name) for name in FLASH_KERNELS]
+    launches, data = {}, {}
+    root = tempfile.mkdtemp(prefix="streaming-")
+    # index_add_'s deterministic CUDA path (see STREAM): two runs of the
+    # same windows then agree bit for bit
+    determinism = (torch.are_deterministic_algorithms_enabled(),
+                   torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    srv = _BrokerHost()
+    try:
+        for name, run in (
+                ("streaming_ncf_online", lambda: data.update(
+                    online=streaming_ncf_online_phase(card, root, srv))),
+                ("streaming_fused_windows",
+                 lambda: streaming_fused_windows_phase(card, root,
+                                                       data["online"], srv)),
+                ("streaming_resume",
+                 lambda: streaming_resume_phase(card, root,
+                                                data["online"], srv)),
+                ("streaming_fleet",
+                 lambda: streaming_fleet_phase(card, root, srv)),
+                ("supervised_fit", lambda: supervised_fit_phase(card,
+                                                                root))):
+            for fn in kernels:
+                fn.launches = 0
+            elsewhere = run() or {}
+            launches[name] = {
+                fn.__name__: fn.launches + elsewhere.get(fn.__name__, 0)
+                for fn in kernels}
+            torch.cuda.empty_cache()
+    finally:
+        srv.stop()
+        torch.use_deterministic_algorithms(determinism[0],
+                                           warn_only=determinism[1])
+        shutil.rmtree(root, ignore_errors=True)
+    if any(n for counts in launches.values() for n in counts.values()):
+        fail(f"a flash kernel launched on a streaming path: {launches}")
+    return launches
+
+
 def main():
     card = device_phase()
     import analytics_zoo_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -8933,7 +9893,8 @@ def main():
                  fraud_launches, autots_launches, od_launches,
                  {**slice_launches, **fleet_launches, **fused_launches,
                   **tcmf_fs_launches, **text_launches, **image_launches,
-                  **tfpark_launches})
+                  **tfpark_launches},
+                 late_paths=lambda: streaming_paths(card))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

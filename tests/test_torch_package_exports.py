@@ -37,15 +37,6 @@ WAITING = {
     "orca/data/image": ("A8", {"ParquetDataset", "SchemaField",
                                "write_from_directory", "write_mnist",
                                "write_ndarrays", "write_voc"}),
-    "resilience": ("A8", {"DispatchTimeout", "DispatchWatchdog",
-                          "SupervisorGiveUp", "TrainingSupervisor",
-                          "classify", "default_timeout_s"}),
-    "streaming": ("A12", {"FleetReloaders", "GuardrailEvaluator",
-                          "GuardrailRejected", "StreamCursor",
-                          "StreamingFleet", "StreamingReloader",
-                          "StreamingStats", "StreamingTrainer",
-                          "StreamingXShards", "Window",
-                          "module_loss_scorer"}),
     "tfpark": ("A9", {"TFNet"}),
 }
 

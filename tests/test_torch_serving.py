@@ -216,7 +216,10 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "zouwu.preprocessing.impute", "zouwu.model", "zouwu.model.nets",
     "zouwu.model.forecast", "zouwu.model.anomaly", "zouwu.autots",
     "zouwu.autots.forecast",
-    "streaming", "streaming.records", "serving.redis_protocol",
+    "streaming", "streaming.records", "streaming.stats",
+    "streaming.source", "streaming.trainer", "streaming.guardrail",
+    "streaming.serve", "streaming.fleet", "resilience.watchdog",
+    "resilience.supervisor", "serving.redis_protocol",
     "ckpt.watch", "models.image.objectdetection",
     "models.image.objectdetection.priors",
     "models.image.objectdetection.bbox", "models.image.objectdetection.ssd",
