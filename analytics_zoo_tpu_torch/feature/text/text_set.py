@@ -15,8 +15,8 @@ end and truncates by ``trunc_mode``; ``random_split`` and
 
 ``read_csv`` reads the two-column ``uri,text`` file with the ``csv``
 module (every field a string; the JAX package reads it with pandas).
-``read_parquet`` is not ported: the port has no parquet reader that runs
-without pandas (ROADMAP A8, ``parquet_dataset``)."""
+``read_parquet`` reads a ``uri``/``text`` table with pandas, imported
+inside the call as in the JAX package."""
 
 from __future__ import annotations
 
@@ -108,9 +108,12 @@ class TextSet:
 
     @classmethod
     def read_parquet(cls, path: str) -> "TextSet":
-        raise NotImplementedError(
-            "TextSet.read_parquet is not ported: the port has no parquet "
-            "reader that runs without pandas (ROADMAP A8, parquet_dataset)")
+        """A parquet table with ``uri`` and ``text`` columns (reference
+        read_parquet)."""
+        import pandas as pd
+        df = pd.read_parquet(path)
+        return cls([TextFeature(t, uri=u)
+                    for u, t in zip(df["uri"], df["text"])])
 
     @classmethod
     def from_relation_pairs(cls, relations, corpus1: "TextSet",

@@ -159,9 +159,16 @@ class PipelineStats:
 
 
 def _batch_nbytes(b) -> int:
-    """Host/device bytes of a batch (``utils.Batch``: arrays, pinned
-    staging slots or tensors)."""
-    return sum(int(getattr(a, "nbytes", 0)) for a in b.leaves())
+    """Host/device bytes of a batch: a ``utils.Batch`` (arrays, pinned
+    staging slots or tensors), a tuple of arrays or one array (the
+    crossover simulation's, ``native/infeed_sim.py``)."""
+    if hasattr(b, "leaves"):
+        leaves = b.leaves()
+    elif isinstance(b, (list, tuple)):
+        leaves = b
+    else:
+        leaves = [b]
+    return sum(int(getattr(a, "nbytes", 0)) for a in leaves)
 
 
 class _FlexQueue:

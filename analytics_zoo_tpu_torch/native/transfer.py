@@ -33,6 +33,7 @@ assembling, one waiting for the lane, one copying) that minimum covers.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -45,7 +46,8 @@ from ..resilience import watchdog as _watchdog
 
 __all__ = ["narrow_wire", "narrows_to", "wire_nbytes", "put_tree",
            "StagingPool", "StagingSlot", "default_h2d_lanes",
-           "MAX_H2D_LANES", "FUSED_STAGING_BYTES", "fused_ring"]
+           "MAX_H2D_LANES", "FUSED_STAGING_BYTES", "fused_ring",
+           "staging_enabled"]
 
 # ceiling for adaptive lane growth, as in the JAX package
 MAX_H2D_LANES = 8
@@ -117,6 +119,21 @@ class StagingSlot:
     @property
     def nbytes(self) -> int:
         return self.array.nbytes
+
+
+def staging_enabled(device=None) -> bool:
+    """Whether batches are gathered into the reused staging ring:
+    ``ZOO_HOST_STAGING=1``/``0`` decides when set; else on for a ``cuda``
+    device, off for the CPU (``device`` None: the card when there is one).
+    The JAX package keys the default on its default backend not being the
+    CPU's; the port keys it on the device the batches go to. The ring is
+    pinned memory, so a CPU device never stages, whatever this says."""
+    env = os.environ.get("ZOO_HOST_STAGING", "").strip()
+    if env in ("0", "1"):
+        return env == "1"
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

@@ -63,8 +63,19 @@ numeric validation result at the epoch's last iteration under
 (``utils/tensorboard.py``); ``get_train_summary(tag)`` and
 ``get_validation_summary(tag)`` read them back as ``[(step, value)]``.
 
-``Estimator.from_keras`` builds a ``TPUEstimator`` from a module or a
-creator, as in the JAX package. Not ported yet: ``profile=<trace dir>``.
+``Estimator.from_keras`` (and its alias ``from_jax``) builds a
+``TPUEstimator`` from a module or a creator, as in the JAX package.
+
+**Profiling**: ``fit(profile=True)`` adds per-step times to each epoch's
+stats; ``fit(profile=<dir>)`` adds them too and traces the first epoch
+(only) with ``torch.profiler`` into ``<dir>``, as the JAX estimator traces
+its first epoch with ``jax.profiler``. The trace is a torch chrome trace
+(``<worker>.<ms>.pt.trace.json``, TensorBoard's profiler-plugin layout),
+not an xplane. On the card a fused epoch's groups are CUDA-graph replays:
+the trace holds one ``cudaGraphLaunch`` a replay on the host and each
+replayed kernel as a device record of its own, carrying that launch's
+correlation id; the optimizer's ``Optimizer.step#`` ranges appear only
+for eager and captured steps.
 """
 
 from __future__ import annotations
@@ -130,6 +141,22 @@ class _StepTimer:
         return out
 
 
+def _start_trace(trace_dir: str, device: torch.device):
+    """A started ``torch.profiler`` session that writes its chrome trace
+    into ``trace_dir`` when stopped (the CPU's activity, and the card's
+    on a ``cuda`` device)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+    prof.start()
+    return prof
+
+
 def _draw_sample(it):
     """Draw the first batch of an unshuffled inline epoch, as the JAX
     estimator does to build its engine in ``fit`` and ``evaluate``, and
@@ -177,6 +204,10 @@ class Estimator:
                             metrics=metrics, model_dir=model_dir,
                             config=config, seed=seed, device=device,
                             prologue=prologue)
+
+    @staticmethod
+    def from_jax(module=None, **kwargs) -> "TPUEstimator":
+        return Estimator.from_keras(model=module, **kwargs)
 
     @staticmethod
     def latest_checkpoint(model_dir: str) -> Optional[str]:
@@ -367,14 +398,16 @@ class TPUEstimator:
             session_config=None,
             checkpoint_trigger: Optional[Trigger] = None,
             steps_per_epoch: Optional[int] = None, shuffle: bool = True,
-            verbose: bool = True, callbacks=None, profile: bool = False,
+            verbose: bool = True, callbacks=None, profile=False,
             max_failure_retries: Optional[int] = None,
             initial_epoch: int = 0) -> List[Dict[str, float]]:
         """Train for ``epochs`` epochs (or ``steps_per_epoch`` steps each).
         ``profile=True`` adds per-step times to each epoch's stats: the
         host's wait for each batch, and each step's time (``step_ms``) from
         CUDA events recorded on the stream as the step starts and ends, so
-        the host is never stalled (wall time on the CPU).
+        the host is never stalled (wall time on the CPU). ``profile`` a
+        directory does the same and writes a ``torch.profiler`` trace of
+        the first epoch there.
 
         With ``model_dir`` and a ``checkpoint_trigger`` the trigger saves
         checkpoints; with a trigger or ``max_failure_retries`` (default 5)
@@ -387,9 +420,6 @@ class TPUEstimator:
         ``initial_epoch`` offsets the shuffle's epoch counter, as in the JAX
         estimator: a run resumed from a checkpoint with it draws the batch
         order of the uninterrupted run's later epochs."""
-        if isinstance(profile, str):
-            raise NotImplementedError("profile=<trace dir> is not ported "
-                                      "yet; profile=True is")
         it = self._iterator(data, batch_size, feature_cols, label_cols,
                             shuffle)
         if initial_epoch:
@@ -695,13 +725,13 @@ class TPUEstimator:
         return epoch_stats
 
     def _fit_epoch(self, it, ep: int, steps_per_epoch: Optional[int],
-                   trigger, profile: bool, watcher=None,
+                   trigger, profile, watcher=None,
                    fuse: int = 1) -> Dict[str, Any]:
         """One epoch of the hot loop; raises through to ``fit``'s retry.
         With ``fuse`` > 1 the iterator yields stacked superbatches and
         each dispatch runs ``fuse`` steps (``train_batch_group``); the
         trigger and the preemption watcher are checked between
-        dispatches."""
+        dispatches. ``profile`` a directory traces epoch 0 into it."""
         t0 = time.time()
         losses = []                # device scalars, or (k,) per group
         tb_steps = []
@@ -709,6 +739,8 @@ class TPUEstimator:
         timer = _StepTimer(self.device) if profile else None
         data_s = 0.0
         steps_done = 0
+        tracer = (_start_trace(profile, self.device)
+                  if isinstance(profile, str) and ep == 0 else None)
         batches = iter(it.epoch(fuse=fuse) if fuse > 1 else it.epoch())
         try:
             while fuse > 1 or steps_done < nsteps:
@@ -742,6 +774,10 @@ class TPUEstimator:
             close = getattr(batches, "close", None)
             if close is not None:
                 close()                 # stops the pump's threads
+            if tracer is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)   # the last kernels
+                tracer.stop()           # writes the trace
         # the host's wait on the card (a launch returns before the card
         # finishes): a watchdog section, so a wedged card is a hang
         host_losses = watched("engine.sync",

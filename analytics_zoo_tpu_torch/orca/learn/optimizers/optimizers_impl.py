@@ -63,7 +63,12 @@ operations optax's):
   weight decay; l1 and ``learningrate_power`` are dropped. The port
   reproduces that fallback.
 
-``LBFGS`` raises "not ported yet" when constructed.
+``LBFGS(max_iter, learningrate)`` builds ``torch.optim.LBFGS(lr=...,
+max_iter=...)``, as the JAX class builds ``optax.lbfgs(lr)``. Neither
+trains in a ``fit``: optax's zoom line search needs ``value``, ``grad``
+and ``value_fn``, torch's LBFGS a ``closure``, and neither engine passes
+them, so the first step raises ``TypeError`` in both packages (ROADMAP,
+reference caveats).
 """
 
 from __future__ import annotations
@@ -474,8 +479,16 @@ def multi_steps(opt, every_k: int) -> OptimizerFactory:
 
 
 class LBFGS(Optimizer):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("optimizer LBFGS is not ported yet")
+    """(reference: optimizers_impl.py:99) second-order, for small
+    full-batch problems; ``step`` needs a closure."""
+
+    def __init__(self, max_iter: int = 20, learningrate: float = 1.0, **_):
+        super().__init__(learningrate)
+        self.max_iter = max_iter
+
+    def to_torch(self):
+        return self._factory(lambda params: torch.optim.LBFGS(
+            params, lr=self.lr, max_iter=self.max_iter))
 
 
 _BY_NAME = {"sgd": SGD, "adam": Adam, "adagrad": Adagrad,

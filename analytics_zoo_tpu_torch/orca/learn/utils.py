@@ -365,8 +365,11 @@ class DeviceFeed:
         """Pinned gather buffers for the prefetch path on the card, in a
         ring sized above the pump's worst-case in-flight window (assembly
         workers, lane ceiling, depth ceiling, the consumer's batch and a
-        margin), as in the JAX package. None off the card."""
-        if self.device is None or self.device.type != "cuda":
+        margin), as in the JAX package. None off the card, or when
+        ``ZOO_HOST_STAGING=0`` turns staging off (``xfer.staging_enabled``).
+        """
+        if (self.device is None or self.device.type != "cuda"
+                or not xfer.staging_enabled(self.device)):
             return None
         if self._staging is None:
             workers = self.prefetch_workers or _default_workers()

@@ -281,6 +281,23 @@ MovieLens-1M widths, f32, Adam), it
   and an injected device loss, as an unsupervised fit (``supervised_fit``;
   no flash kernel launches on any of the five paths).
 
+Then, with Friesian and Parquet input (``examples/friesian/
+recsys_feature_engineering.py`` at 1,000,000 click rows), it
+
+* engineers the click log with ``FeatureTable`` (string indices, median
+  fill, clip, log, normalize, encode, the city x device cross), round-trips
+  the table and the user index through Parquet, trains Wide & Deep at the
+  example's widths 1 epoch at batch 512 with Adam, holds the example's
+  holdout gate and 2 steps against the CPU (``friesian_wnd``);
+* builds session features from 100,000 rows (negative samples, item and
+  negative histories, mask and pad, lengths) and trains SessionRecommender
+  at the JAX defaults with history (``friesian_session``);
+* writes 60,000 MNIST-shaped uint8 digits with ``write_ndarrays``, fits a
+  user's LeNet-5 from ``ParquetDataset.read_as_xshards`` through
+  ``TPUEstimator`` with ``profile=<dir>`` and reads the trace's kernels
+  back, holds ``read_as_torch`` to the shards and reads a TextSet parquet
+  table (``parquet_fit``; no flash kernel launches on the three paths).
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The ``kernels`` line lists every kernel with its time, bound, plain and
 library times; the last line is ``{"ok": true, "device": {...}}``.
@@ -9785,6 +9802,470 @@ def streaming_paths(card):
     return launches
 
 
+# --- columnar paths: Friesian feature engineering and Parquet input ----------
+# examples/friesian/recsys_feature_engineering.py at 1,000,000 click rows:
+# the example's default is 60,000 rows and the reference runs Friesian on
+# tens of millions; the cut is the smoke's time limit. Users are drawn
+# from 33,000 and items from 8,300, which keeps the example's rows per
+# user and per item (60,000 / 2,000 and / 500); the city and device lists
+# are the example's. Its pipeline, then Wide & Deep at its widths (hidden
+# 40/20/10, embeddings 16), 1 epoch at batch 512 with Adam on 90 % of the
+# rows, held to its gate on the rest (accuracy >= majority baseline -
+# 0.02). The session path takes 100,000 rows of the same log with a seeded
+# time column into SessionRecommender at the JAX defaults (item_embed 100,
+# GRUs 40/20, sessions of 5, history 10). The Parquet path writes 60,000
+# seeded uint8 28x28x1 images (MNIST's shapes; each a class template plus
+# noise, so a LeNet-5 can learn them) in blocks of 1,000 and fits them
+# from read_as_xshards through TPUEstimator with a trace of the first
+# epoch, 16 steps a dispatch: the epoch's 235 steps are then one eager
+# group, a capture, 13 replays and 11 single steps, so the trace shows
+# how replays appear (auto picked 128, and the epoch then held no
+# replay). TOL_WND_VS_CPU: the largest difference of a parameter leaf
+# relative to its largest entry after 2 Adam steps (lr 1e-3, batch 512)
+# on the card and on the CPU from the same weights, f32; the control, the
+# card after 3 steps, moves every parameter by about one more lr (the
+# zero-initialised biases by half their value) and must miss.
+FRIESIAN = dict(rows=1_000_000, users=33_000, items=8_300, batch=512,
+                epochs=1, embed=16, hidden=(40, 20, 10), holdout=0.1,
+                seed=0)
+FRIESIAN_CITIES = ["nyc", "sf", "chi", "la", "sea", "bos", "atx", "den"]
+FRIESIAN_DEVICES = ["ios", "android", "web"]
+FRIESIAN_SESSION = dict(rows=100_000, users=33_000, items=8_300, max_len=10,
+                        session=5, neg_num=1, batch=256, epochs=1, seed=1)
+PARQUET_FIT = dict(rows=60_000, size=28, classes=10, block=1000, batch=256,
+                   epochs=2, fuse=16, seed=2)
+WND_VS_CPU = dict(rows=2048, batch=512, steps=2)
+TOL_WND_VS_CPU = 1e-3
+
+
+def click_log(n, users, items, seed=0, with_time=False):
+    """The example's synthetic_click_log drawn with vectorised numpy:
+    string users, items, cities and devices, prices with 5 % missing,
+    exponential dwell times, a click label tied to the device and the
+    price; ``with_time`` adds a seeded event time."""
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    names = lambda prefix, k: np.array([f"{prefix}{i}" for i in range(k)])
+    cols = {
+        "user": names("u", users)[rng.randint(users, size=n)],
+        "item": names("i", items)[rng.randint(items, size=n)],
+        "city": np.array(FRIESIAN_CITIES)[
+            rng.randint(len(FRIESIAN_CITIES), size=n)],
+        "device": np.array(FRIESIAN_DEVICES)[
+            rng.randint(len(FRIESIAN_DEVICES), size=n)],
+        "price": np.where(rng.rand(n) < 0.05, np.nan,
+                          np.exp(rng.randn(n) * 1.2 + 3)),
+        "dwell_ms": rng.exponential(3000, n)}
+    if with_time:
+        cols["time"] = rng.permutation(n).astype(np.int64)
+    df = pd.DataFrame(cols)
+    click_p = (0.15 + 0.25 * (df["device"] == "ios")
+               - 0.1 * (df["price"].fillna(df["price"].median()) > 40))
+    df["label"] = (rng.rand(n) < click_p).astype(np.int32)
+    return df
+
+
+class _Stages:
+    """Host seconds of each named stage."""
+
+    def __init__(self):
+        self.s = {}
+
+    def __call__(self, name, fn):
+        t = time.perf_counter()
+        out = fn()
+        self.s[name] = time.perf_counter() - t
+        return out
+
+
+def _frames_equal(got, want):
+    from pandas.testing import assert_frame_equal
+    try:
+        assert_frame_equal(got, want, check_exact=True)
+        return True
+    except AssertionError:
+        return False
+
+
+def _wnd_features(df, sizes):
+    """The example's W&D rows: device and the city x device cross one-hot
+    (wide), city one-hot (indicator), user and item ids, price and dwell."""
+    from analytics_zoo_tpu_torch.models import ColumnFeatureInfo
+    user_n, item_n, city_n, dev_n = sizes
+    n = len(df)
+    dev_dim, city_dim = dev_n + 1, city_n + 1
+    wide = np.zeros((n, dev_dim + 32), np.float32)
+    wide[np.arange(n), df["device"]] = 1.0
+    wide[np.arange(n), dev_dim + df["city_device"]] = 1.0
+    indicator = np.zeros((n, city_dim), np.float32)
+    indicator[np.arange(n), df["city"]] = 1.0
+    ci = ColumnFeatureInfo(
+        wide_base_cols=["device", "city_device"],
+        wide_base_dims=[dev_dim, 32], indicator_cols=["city"],
+        indicator_dims=[city_dim], embed_cols=["user", "item"],
+        embed_in_dims=[user_n + 1, item_n + 1],
+        embed_out_dims=[FRIESIAN["embed"]] * 2,
+        continuous_cols=["price", "dwell_ms"])
+    x = np.concatenate(
+        [wide, indicator, df[["user", "item"]].to_numpy(np.float32),
+         df[["price", "dwell_ms"]].to_numpy(np.float32)], axis=1)
+    if x.shape[1] != ci.feature_width():
+        fail(f"W&D rows are {x.shape[1]} wide, not {ci.feature_width()}")
+    return x, df["label"].to_numpy(np.int32), ci
+
+
+def _profiled_fit(dev, fit):
+    """``fit()`` under torch.profiler on the card (``_fit_profile``: idle
+    share, top kernels); on the CPU its wall time only."""
+    if torch.device(dev).type == "cuda":
+        return _fit_profile(fit)
+    t0 = time.perf_counter()
+    fit()
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3,
+            "device_idle_share": "not measured"}
+
+
+def _wnd_steps(dev, ci, state, x, y, steps):
+    """``steps`` Adam steps of the example's Wide & Deep on ``dev`` from
+    ``state`` (None: the model's own draw): start and end parameters."""
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    m = WideAndDeep(2, ci, "wide_n_deep", hidden_layers=FRIESIAN["hidden"],
+                    device=dev)
+    if state is not None:
+        m.module.load_state_dict(state)
+    m.compile(loss="sparse_categorical_crossentropy", optimizer="adam")
+    start = {k: v.detach().cpu().clone()
+             for k, v in m.module.state_dict().items()}
+    m.fit({"x": x, "y": y}, epochs=1, batch_size=WND_VS_CPU["batch"],
+          steps_per_epoch=steps, shuffle=False, verbose=False)
+    return start, {k: v.detach().cpu().clone()
+                   for k, v in m.module.state_dict().items()}
+
+
+def friesian_wnd_phase(card, root, dev="cuda", cfg=FRIESIAN):
+    """The example's Friesian pipeline on the click log, a Parquet round
+    trip of the engineered table and of the user index, Wide & Deep fit
+    and gated, and 2 steps against the CPU."""
+    from analytics_zoo_tpu_torch.friesian.feature import (FeatureTable,
+                                                          StringIndex)
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    st = _Stages()
+    t0 = time.perf_counter()
+    tbl = FeatureTable.from_pandas(st("generate", lambda: click_log(
+        cfg["rows"], cfg["users"], cfg["items"], cfg["seed"])))
+    user_idx, item_idx = st("gen_string_idx_user_item",
+                            lambda: tbl.gen_string_idx(["user", "item"],
+                                                       freq_limit=2))
+    city_idx, dev_idx = st("gen_string_idx_city_device",
+                           lambda: tbl.gen_string_idx(["city", "device"]))
+    tbl = st("fill_median", lambda: tbl.fill_median(["price"]))
+    tbl = st("clip", lambda: tbl.clip(["dwell_ms"], min=0, max=60_000))
+    tbl = st("log", lambda: tbl.log(["price", "dwell_ms"]))
+    tbl = st("normalize", lambda: tbl.normalize(["price", "dwell_ms"]))
+    tbl = st("encode_string", lambda: tbl.encode_string(
+        ["user", "item", "city", "device"],
+        [user_idx, item_idx, city_idx, dev_idx]))
+    tbl = st("cross_columns",
+             lambda: tbl.cross_columns([["city", "device"]], [32]))
+    path = os.path.join(root, "engineered.parquet")
+    st("write_parquet", lambda: tbl.write_parquet(path))
+    back = st("read_parquet", lambda: FeatureTable.read_parquet(path))
+    ipath = os.path.join(root, "user_index.parquet")
+    st("string_index_write", lambda: user_idx.write_parquet(ipath))
+    iback = st("string_index_read", lambda: StringIndex.read_parquet(ipath))
+    round_trips = {"table": _frames_equal(back.df, tbl.df),
+                   "user_index": _frames_equal(iback.df, user_idx.df)
+                   and iback.col_name == user_idx.col_name}
+    sizes = [i.size() for i in (user_idx, item_idx, city_idx, dev_idx)]
+    x, y, ci = st("assemble", lambda: _wnd_features(tbl.to_pandas(), sizes))
+    host_s = time.perf_counter() - t0
+    split = int((1 - cfg["holdout"]) * len(x))
+    wnd = WideAndDeep(2, ci, "wide_n_deep", hidden_layers=cfg["hidden"],
+                      device=dev)
+    wnd.compile(loss="sparse_categorical_crossentropy", optimizer="adam")
+    t = time.perf_counter()
+    stats = wnd.fit({"x": x[:split], "y": y[:split]}, epochs=cfg["epochs"],
+                    batch_size=cfg["batch"], profile=True, verbose=False)
+    _sync(dev)
+    fit_s = time.perf_counter() - t
+    steady, step_ms = _steady_rate(stats, cfg["batch"])
+    probs = np.asarray(wnd.predict(x[split:], batch_size=8192))
+    acc = float((np.argmax(probs, -1) == y[split:]).mean())
+    base = float(max(y[split:].mean(), 1 - y[split:].mean()))
+    fuse = wnd.estimator.fuse
+    # the device's idle share over a profiled fit of the first
+    # 256 batches (the full fit's graphs replayed): torch.profiler's
+    # processing of the whole fit's records took longer than the fit
+    prof = _profiled_fit(dev, lambda: wnd.fit(
+        {"x": x[:256 * cfg["batch"]], "y": y[:256 * cfg["batch"]]},
+        epochs=1, batch_size=cfg["batch"], verbose=False))
+    del wnd
+    # 2 steps on the card against the CPU from the same weights
+    vx, vy = x[:WND_VS_CPU["rows"]], y[:WND_VS_CPU["rows"]]
+    start, cpu = _wnd_steps("cpu", ci, None, vx, vy, WND_VS_CPU["steps"])
+    _, card_p = _wnd_steps(dev, ci, start, vx, vy, WND_VS_CPU["steps"])
+    _, ctl_p = _wnd_steps(dev, ci, start, vx, vy, WND_VS_CPU["steps"] + 1)
+    vs_cpu, ctl = _param_rel(card_p, cpu), _param_rel(ctl_p, cpu)
+    out = {"phase": "friesian_wnd", "nvidia_smi": card, "rows": len(x),
+           "train_rows": split, "vocab": dict(zip(
+               ("user", "item", "city", "device"), sizes)),
+           "feature_width": ci.feature_width(), "host_stage_s": st.s,
+           "host_s": host_s, "round_trips_equal": round_trips,
+           "fit_s": fit_s, "fit_samples_per_s": split * cfg["epochs"] / fit_s,
+           "steady_samples_per_s": steady, "steady_step_ms": step_ms,
+           "steps": sum(len(s["profile"]["step_ms"]) for s in stats),
+           "fuse": fuse, "train_loss": stats[-1]["train_loss"],
+           "device_idle_share": prof["device_idle_share"],
+           "top_kernels": prof.get("top_kernels", [])[:3],
+           "holdout_accuracy": acc, "majority_baseline": base,
+           "vs_cpu_param_rel": vs_cpu, "vs_cpu_control": ctl,
+           "limit": TOL_WND_VS_CPU, "run_s": time.perf_counter() - t0}
+    emit(out)
+    if not (all(round_trips.values()) and acc >= base - 0.02
+            and math.isfinite(stats[-1]["train_loss"])
+            and vs_cpu <= TOL_WND_VS_CPU < ctl):
+        fail(f"friesian_wnd: {out}")
+
+
+def friesian_session_phase(card, dev="cuda", cfg=FRIESIAN_SESSION):
+    """The session features of 100,000 log rows (negative samples, item
+    histories, negative histories, mask and pad, lengths) into
+    SessionRecommender at the JAX defaults with history, fit 1 epoch on
+    the positive rows: the session is the last 5 items of the history, the
+    label the row's item."""
+    from analytics_zoo_tpu_torch.friesian.feature import FeatureTable
+    from analytics_zoo_tpu_torch.models import SessionRecommender
+    st = _Stages()
+    t0 = time.perf_counter()
+    log = st("generate", lambda: click_log(cfg["rows"], cfg["users"],
+                                           cfg["items"], cfg["seed"],
+                                           with_time=True))
+    tbl = FeatureTable.from_pandas(log[["user", "item", "time"]])
+    user_idx, item_idx = st("gen_string_idx",
+                            lambda: tbl.gen_string_idx(["user", "item"]))
+    tbl = st("encode_string", lambda: tbl.encode_string(
+        ["user", "item"], [user_idx, item_idx]))
+    n_items = item_idx.size()
+    tbl = st("add_negative_samples", lambda: tbl.add_negative_samples(
+        n_items + 1, neg_num=cfg["neg_num"]))
+    tbl = st("add_hist_seq", lambda: tbl.add_hist_seq(
+        "user", ["item"], max_len=cfg["max_len"]))
+    tbl = st("add_neg_hist_seq", lambda: tbl.add_neg_hist_seq(
+        n_items + 1, "item_hist_seq", cfg["neg_num"]))
+    tbl = st("add_length", lambda: tbl.add_length("item_hist_seq"))
+    tbl = st("mask_pad", lambda: tbl.mask_pad(
+        ["item_hist_seq", "neg_item_hist_seq"], ["item_hist_seq"],
+        seq_len=cfg["max_len"]))
+    df = tbl.to_pandas()
+    pos = (df["label"] == 1).to_numpy()
+    hist = np.array(df["item_hist_seq"].tolist(), np.int32)[pos]
+    lens = np.minimum(df["item_hist_seq_length"].to_numpy()[pos],
+                      cfg["max_len"])
+    # the session: the last ``session`` items of the history, 0 before it
+    last = lens[:, None] - cfg["session"] + np.arange(cfg["session"])
+    session = np.where(last >= 0, np.take_along_axis(
+        hist, np.clip(last, 0, None), 1), 0)
+    x = np.concatenate([session, hist], 1).astype(np.int32)
+    y = df["item"].to_numpy(np.int32)[pos]
+    mask = np.array(df["item_hist_seq_mask"].tolist(), np.int32)[pos]
+    if not (mask.sum(1) == lens).all():
+        fail("friesian_session: the history mask disagrees with its length")
+    host_s = time.perf_counter() - t0
+    sr = SessionRecommender(n_items, item_embed=100,
+                            rnn_hidden_layers=(40, 20),
+                            session_length=cfg["session"],
+                            include_history=True,
+                            history_length=cfg["max_len"], device=dev)
+    sr.compile(loss="sparse_categorical_crossentropy", optimizer="adam")
+    t = time.perf_counter()
+    stats = sr.fit({"x": x, "y": y}, epochs=cfg["epochs"],
+                   batch_size=cfg["batch"], profile=True, verbose=False)
+    _sync(dev)
+    fit_s = time.perf_counter() - t
+    steady, step_ms = _steady_rate(stats, cfg["batch"])
+    recs = sr.recommend_for_session(x[:64], max_items=5)
+    out = {"phase": "friesian_session", "nvidia_smi": card,
+           "log_rows": cfg["rows"], "rows_after_negatives": len(df),
+           "train_rows": len(x), "items": n_items,
+           "host_stage_s": st.s, "add_hist_seq_s": st.s["add_hist_seq"],
+           "host_s": host_s, "fit_s": fit_s,
+           "fit_samples_per_s": len(x) * cfg["epochs"] / fit_s,
+           "steady_samples_per_s": steady, "steady_step_ms": step_ms,
+           "train_loss": stats[-1]["train_loss"],
+           "run_s": time.perf_counter() - t0}
+    emit(out)
+    if not (math.isfinite(stats[-1]["train_loss"]) and len(recs) == 64
+            and all(len(r) == 5 for r in recs)):
+        fail(f"friesian_session: {out}")
+
+
+class LeNet5(torch.nn.Module):
+    """LeNet-5 as a user writes it in torch, over uint8 NHWC digits."""
+
+    def __init__(self, classes=10):
+        super().__init__()
+        self.conv1 = torch.nn.Conv2d(1, 6, 5, padding=2)
+        self.conv2 = torch.nn.Conv2d(6, 16, 5)
+        self.fc1 = torch.nn.Linear(16 * 5 * 5, 120)
+        self.fc2 = torch.nn.Linear(120, 84)
+        self.fc3 = torch.nn.Linear(84, classes)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2).float() / 255.0
+        x = torch.nn.functional.max_pool2d(torch.relu(self.conv1(x)), 2)
+        x = torch.nn.functional.max_pool2d(torch.relu(self.conv2(x)), 2)
+        x = torch.relu(self.fc1(x.flatten(1)))
+        return self.fc3(torch.relu(self.fc2(x)))
+
+
+def _digits(cfg):
+    """Seeded class templates plus noise, uint8 (n, size, size, 1)."""
+    rng = np.random.RandomState(cfg["seed"])
+    s = cfg["size"]
+    templates = rng.randint(0, 256, (cfg["classes"], s, s, 1))
+    labels = rng.randint(0, cfg["classes"], cfg["rows"])
+    noise = rng.randint(0, 256, (cfg["rows"], s, s, 1))
+    return ((templates[labels] + noise) // 2).astype(np.uint8), labels
+
+
+def _trace_kernels(trace_dir):
+    """Kernel time by name from the one chrome trace in ``trace_dir``, and
+    the host's cudaGraphLaunch calls in it."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        fail(f"parquet_fit: {len(files)} traces in {trace_dir}: {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    launches = {e.get("args", {}).get("correlation") for e in events
+                if e.get("name") == "cudaGraphLaunch"}
+    by_kernel = collections.defaultdict(float)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for e in kernels:
+        by_kernel[e["name"]] += e.get("dur", 0) / 1e3
+    return {"events": len(events), "by_kernel": by_kernel,
+            "kernel_records": len(kernels),
+            # a replayed kernel's record carries its cudaGraphLaunch's
+            # correlation id
+            "kernel_records_of_graph_launches": sum(
+                1 for e in kernels
+                if e.get("args", {}).get("correlation") in launches),
+            "graph_launches": len(launches - {None}),
+            "optimizer_step_ranges": sum(
+                1 for e in events if e.get("cat") == "user_annotation"
+                and e["name"].startswith("Optimizer.step#"))}
+
+
+def parquet_fit_phase(card, root, dev="cuda", cfg=PARQUET_FIT):
+    """MNIST-shaped digits through write_ndarrays, read_as_xshards and a
+    LeNet-5 fit with ``feature_cols``/``label_cols`` and ``profile=<dir>``
+    (the trace must name the step's kernels); read_as_torch against
+    read_as_xshards; a TextSet parquet table read back."""
+    import pandas as pd
+    from analytics_zoo_tpu_torch.feature.text import TextSet
+    from analytics_zoo_tpu_torch.orca.data.image import (ParquetDataset,
+                                                         write_ndarrays)
+    from analytics_zoo_tpu_torch.orca.learn import losses
+    from analytics_zoo_tpu_torch.orca.learn.estimator import TPUEstimator
+    st = _Stages()
+    t0 = time.perf_counter()
+    images, labels = st("generate", lambda: _digits(cfg))
+    path = os.path.join(root, "digits")
+    st("write_ndarrays", lambda: write_ndarrays(
+        images, labels, path, block_size=cfg["block"]))
+    shards = st("read_as_xshards",
+                lambda: ParquetDataset.read_as_xshards(path))
+    parts = shards.collect()
+    got_images = np.concatenate([p["image"] for p in parts])
+    got_labels = np.concatenate([p["label"] for p in parts])
+    if not (np.array_equal(got_images, images)
+            and np.array_equal(got_labels, labels)):
+        fail("parquet_fit: read_as_xshards does not give the written rows")
+    ds = st("read_as_torch", lambda: ParquetDataset.read_as_torch(path))
+    torch_rows = len(ds) == len(images) and all(
+        np.array_equal(ds[i]["image"], got_images[i])
+        and ds[i]["label"] == got_labels[i]
+        for i in (0, 1, len(ds) // 2, len(ds) - 1))
+    torch.manual_seed(cfg["seed"])
+    est = TPUEstimator(LeNet5(cfg["classes"]), loss=partial(
+        losses.sparse_categorical_crossentropy, from_logits=True),
+        optimizer="adam", device=dev,
+        config={"steps_per_dispatch": cfg["fuse"]})
+    trace_dir = os.path.join(root, "trace")
+    t = time.perf_counter()
+    stats = est.fit(shards, epochs=cfg["epochs"], batch_size=cfg["batch"],
+                    feature_cols=["image"], label_cols=["label"],
+                    profile=trace_dir, verbose=False)
+    _sync(dev)
+    fit_s = time.perf_counter() - t
+    steady, step_ms = _steady_rate(stats, cfg["batch"])
+    trace = _trace_kernels(trace_dir)
+    by_kernel = trace.pop("by_kernel")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3]
+    texts = ["héllo wörld", "", "a, b; c.", "line\nbreak", "x" * 300]
+    tpath = os.path.join(root, "texts.parquet")
+    pd.DataFrame({"uri": [f"doc/{i}" for i in range(len(texts))],
+                  "text": texts}).to_parquet(tpath)
+    tset = TextSet.read_parquet(tpath)
+    text_ok = (tset.get_texts() == texts
+               and tset.get_uris() == [f"doc/{i}" for i in range(5)])
+    losses_ = [s["train_loss"] for s in stats]
+    out = {"phase": "parquet_fit", "nvidia_smi": card, "rows": len(images),
+           "blocks": len(parts), "host_stage_s": st.s, "fit_s": fit_s,
+           "epoch_losses": losses_, "steady_samples_per_s": steady,
+           "steady_step_ms": step_ms,
+           "trace": {**trace, "kernel_names": len(by_kernel),
+                     "top_kernels": [{"name": n[:120], "ms": ms}
+                                     for n, ms in top]},
+           "epoch0_steps": len(stats[0]["profile"]["step_ms"]),
+           "fuse": est.fuse,
+           "read_as_torch_rows_equal": torch_rows,
+           "textset_parquet_equal": text_ok,
+           "run_s": time.perf_counter() - t0}
+    emit(out)
+    kernels_seen = bool(by_kernel) or torch.device(dev).type != "cuda"
+    if not (kernels_seen and torch_rows and text_ok
+            and all(math.isfinite(v) for v in losses_)
+            and losses_[-1] < losses_[0]):
+        fail(f"parquet_fit: {out}")
+
+
+def columnar_paths(card, dev="cuda"):
+    """The Friesian and Parquet slice's phases, each driven with the flash
+    kernels' counts at 0: none may launch one (W&D, SessionRecommender and
+    LeNet-5 hold no attention). Returns the counts by path."""
+    import importlib.util
+    from analytics_zoo_tpu_torch.ops import attention as at
+    specs = {m: importlib.util.find_spec(m) is not None
+             for m in ("pandas", "pyarrow.parquet")}
+    emit({"phase": "columnar_modules", "find_spec": specs})
+    if not all(specs.values()):
+        fail(f"columnar_paths needs pandas and pyarrow: {specs}")
+    kernels = [getattr(at, name) for name in FLASH_KERNELS]
+    launches = {}
+    root = tempfile.mkdtemp(prefix="columnar-")
+    t0 = time.perf_counter()
+    try:
+        for name, run in (
+                ("friesian_wnd",
+                 lambda: friesian_wnd_phase(card, root, dev)),
+                ("friesian_session",
+                 lambda: friesian_session_phase(card, dev)),
+                ("parquet_fit", lambda: parquet_fit_phase(card, root, dev))):
+            for fn in kernels:
+                fn.launches = 0
+            run()
+            launches[name] = {fn.__name__: fn.launches for fn in kernels}
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "columnar_paths", "group_s": time.perf_counter() - t0,
+          "launches": launches})
+    if any(n for counts in launches.values() for n in counts.values()):
+        fail(f"a flash kernel launched on a columnar path: {launches}")
+    return launches
+
+
 def main():
     card = device_phase()
     import analytics_zoo_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -9894,7 +10375,8 @@ def main():
                  {**slice_launches, **fleet_launches, **fused_launches,
                   **tcmf_fs_launches, **text_launches, **image_launches,
                   **tfpark_launches},
-                 late_paths=lambda: streaming_paths(card))
+                 late_paths=lambda: {**streaming_paths(card),
+                                     **columnar_paths(card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

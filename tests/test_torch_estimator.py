@@ -21,8 +21,10 @@ steps of lr 1e-3), while the losses stay within 1e-6.
 """
 
 import json
+import os
 from functools import partial
 
+import flax.linen as fnn
 import jax
 import numpy as np
 import pytest
@@ -204,23 +206,78 @@ def test_save_load_round_trip(tmp_path):
     assert again.engine.step == est.engine.step == 2
 
 
-def test_planes_not_ported_raise():
-    """What is still not ported raises instead of being ignored: a
-    ``profile=<trace dir>`` and the optimizer without a torch counterpart
-    yet, LBFGS (``model_dir`` and ``checkpoint_trigger`` are ported now:
-    tests/test_torch_ckpt.py; the other optimizers:
-    tests/test_torch_optimizers.py)."""
-    est = ttext.BERTClassifier(num_classes=2, bert_config=TINY_BERT,
-                               device="cpu")
-    ids = _token_batch(n=8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        est.fit({"x": ids, "y": ids[:, 0] % 2}, batch_size=8,
-                profile="/nonexistent")
+class _JaxLinear(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.Dense(1)(x)
+
+
+def _linear_pair(optimizer):
+    """A one-layer regression on each side, with ``optimizer(module)`` (the
+    JAX or the port's optimizers_impl) and the same 64 rows."""
+    x = np.random.RandomState(0).randn(64, 4).astype(np.float32)
+    data = {"x": x, "y": x.sum(1, keepdims=True)}
+    jest = JEstimator(_JaxLinear(), loss="mse", optimizer=optimizer(jopt))
+    test = TEstimator(torch.nn.Linear(4, 1), loss="mse",
+                      optimizer=optimizer(topt), device="cpu")
+    return jest, test, data
+
+
+def test_planes_not_ported_raise(orca_context, tmp_path):
+    """The planes that raised "not ported yet" behave as the JAX
+    estimator's. ``profile=<dir>``: both packages add the per-epoch
+    profile stats to every epoch and trace only the first epoch into the
+    directory (JAX one xplane run, the port one torch chrome trace holding
+    epoch 0's four optimizer steps of the eight). ``LBFGS`` constructs
+    with the JAX class's fields and fails the first step of a fit in both
+    packages with a ``TypeError``: optax's line search misses ``value``,
+    ``grad`` and ``value_fn``, torch's LBFGS its ``closure``."""
+    jest, test, data = _linear_pair(lambda m: "adam")
+    kw = dict(epochs=2, batch_size=16, shuffle=False, verbose=False)
+    jstats = jest.fit(data, profile=str(tmp_path / "jax"), **kw)
+    tstats = test.fit(data, profile=str(tmp_path / "port"), **kw)
+    for j, t in zip(jstats, tstats):
+        assert set(j["profile"]) < set(t["profile"])
+        assert t["profile"]["steps"] == j["profile"]["steps"] == 4
+    runs = os.listdir(tmp_path / "jax" / "plugins" / "profile")
+    assert len(runs) == 1
+    traces = os.listdir(tmp_path / "port")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    with open(tmp_path / "port" / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("Optimizer.step#")]
+    assert len(steps) == 4
     for kwargs in ({}, {"max_iter": 5}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ttext.BERTClassifier(num_classes=2, bert_config=TINY_BERT,
-                                 optimizer=topt.LBFGS(**kwargs),
-                                 device="cpu")
+        j_lbfgs, t_lbfgs = jopt.LBFGS(**kwargs), topt.LBFGS(**kwargs)
+        assert (t_lbfgs.max_iter, t_lbfgs.lr) == (j_lbfgs.max_iter,
+                                                  j_lbfgs.lr)
+        jest, test, data = _linear_pair(lambda m: m.LBFGS(**kwargs))
+        with pytest.raises(TypeError, match="value_fn"):
+            jest.fit(data, batch_size=16, verbose=False)
+        with pytest.raises(TypeError, match="closure"):
+            test.fit(data, batch_size=16, verbose=False)
+
+
+def test_from_jax_is_from_keras(orca_context):
+    """``Estimator.from_jax(module, **kw)`` is ``from_keras(model=module,
+    **kw)`` in both packages: the same estimator, trained the same."""
+    from analytics_zoo_tpu.orca.learn.estimator import Estimator as JEst
+    from analytics_zoo_tpu_torch.orca.learn.estimator import Estimator
+    x = np.random.RandomState(1).randn(32, 4).astype(np.float32)
+    data = {"x": x, "y": x.sum(1, keepdims=True)}
+    kw = dict(epochs=1, batch_size=8, shuffle=False, verbose=False)
+    losses = []
+    for make in (Estimator.from_jax, lambda m, **k: Estimator.from_keras(
+            model=m, **k)):
+        torch.manual_seed(0)
+        est = make(torch.nn.Linear(4, 1), loss="mse", optimizer="sgd",
+                   device="cpu")
+        assert type(est) is TEstimator
+        losses.append([s["train_loss"] for s in est.fit(data, **kw)])
+    assert losses[0] == losses[1]
+    jest = JEst.from_jax(_JaxLinear(), loss="mse", optimizer="sgd")
+    assert type(jest) is JEstimator
 
 
 def test_estimator_needs_a_gpu_unless_asked_for_cpu(monkeypatch):

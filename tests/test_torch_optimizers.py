@@ -215,5 +215,10 @@ def test_convert_optimizer_learning_rate_rule_matches_jax():
         with pytest.raises(ValueError, match="no learning-rate"):
             convert("adadelta", learning_rate=0.1)
     assert topt.convert_optimizer("adadelta")(p).defaults["lr"] == 1.0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        topt.LBFGS()
+    # LBFGS is no name in either table; its learningrate is its lr
+    for convert in (topt.convert_optimizer, jopt.convert_optimizer):
+        with pytest.raises(ValueError, match="lbfgs"):
+            convert("lbfgs")
+    assert jopt.LBFGS(learningrate=0.125).lr == 0.125
+    assert topt.convert_optimizer(topt.LBFGS(learningrate=0.125))(
+        p).defaults["lr"] == 0.125

@@ -25,18 +25,11 @@ PORT_PKG = os.path.join(REPO, "analytics_zoo_tpu_torch")
 WAITING = {
     "analysis": ("A12", None),
     "compile": ("A12", None),
-    "friesian": ("A9", None),
-    "friesian/feature": ("A9", None),
     "models/caffe": ("A9", None),
     "orca/learn/tf2": ("A9", None),
     "parallel": ("A10", None),
     "pipeline/api/onnx": ("A9", None),
-    "native": ("A8", {"Arena", "NativeQueue", "f32_to_bf16_bits",
-                      "pad_sequences", "sharded_put", "staging_enabled",
-                      "version"}),
-    "orca/data/image": ("A8", {"ParquetDataset", "SchemaField",
-                               "write_from_directory", "write_mnist",
-                               "write_ndarrays", "write_voc"}),
+    "native": ("A10", {"sharded_put"}),
     "tfpark": ("A9", {"TFNet"}),
 }
 

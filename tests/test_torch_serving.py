@@ -264,7 +264,9 @@ PORTED_MODULES = ["analytics_zoo_tpu_torch." + m for m in (
     "pipeline.api.keras2.layers.wrappers",
     "pipeline.api.keras2.layers.convolutional_recurrent",
     "orca.learn.gan_estimator", "tfpark", "pipeline.estimator",
-    "pipeline.estimator.estimator")]
+    "pipeline.estimator.estimator",
+    "orca.data.image.parquet_dataset", "friesian", "friesian.feature",
+    "friesian.feature.table", "native.infeed_sim")]
 
 
 def test_port_imports_no_jax():

@@ -142,9 +142,9 @@ def test_textset_split_relations_and_accessors_equal_jax():
 
 
 def test_textset_readers_and_word_index_files_equal_jax(tmp_path):
-    """``read`` over news20's layout, ``read_csv`` over uri,text rows, and
-    word-index pickles that each package's loader reads from the other;
-    ``read_parquet`` is not ported and says so."""
+    """``read`` over news20's layout, ``read_csv`` over uri,text rows,
+    ``read_parquet`` over a uri/text table, and word-index pickles that
+    each package's loader reads from the other."""
     texts, _ = _corpus(12)
     for c, cat in enumerate(["comp.graphics", "alt.atheism", "sci.med"]):
         os.makedirs(tmp_path / "news" / cat)
@@ -167,8 +167,13 @@ def test_textset_readers_and_word_index_files_equal_jax(tmp_path):
     t.save_word_index(str(tmp_path / "port.pkl"))
     with open(tmp_path / "port.pkl", "rb") as f:
         assert pickle.load(f) == j.get_word_index()
-    with pytest.raises(NotImplementedError, match="parquet_dataset"):
-        tts.TextSet.read_parquet(str(tmp_path / "x.parquet"))
+    import pandas as pd
+    pq_path = str(tmp_path / "texts.parquet")
+    pd.DataFrame({"uri": [f"u{i}" for i in range(len(texts))],
+                  "text": texts}).to_parquet(pq_path)
+    j, t = _both(lambda m: m.TextSet.read_parquet(pq_path))
+    assert t.get_texts() == j.get_texts() == texts
+    assert t.get_uris() == j.get_uris()
 
 
 # --- shared helpers -------------------------------------------------------------
